@@ -1,0 +1,7 @@
+from pita_torch.io.flax_params import (
+    egnn_params_from_tree,
+    load_egnn_params,
+    msgpack_restore,
+)
+
+__all__ = ["egnn_params_from_tree", "load_egnn_params", "msgpack_restore"]

@@ -1,0 +1,68 @@
+"""EDM preconditioning wrappers: ScoreWrapper and EnergyWrapper.
+
+Counterpart of ``pita_tpu/nets/precondition.py:28-134``:
+``c_s = 1/(1+h)``, ``c_in = (1+h)^{-1/2}``, ``c_out = sqrt(h)·c_in``,
+``c_noise = ln(h)/8``; denoiser ``D = c_s·x + c_out·F(c_noise, c_in·x, β)``,
+score ``(D − x)/h``; scalar energy ``U_θ = <F(c_noise, c_in·x, β), c_in·x>``
+and ``E_θ = (1−c_s)/(2h)·‖x‖² − c_out/(c_in·h)·U_θ``. The wrappers hold their
+backbone module (its weights), so no ``params`` argument is passed. Pinning
+to the true energy is not ported yet.
+"""
+
+import torch
+
+
+def coeffs(ht):
+    c_s = 1.0 / (1.0 + ht)
+    c_in = (1.0 + ht) ** -0.5
+    c_out = ht ** 0.5 * c_in
+    c_noise = 0.125 * torch.log(ht)
+    return c_s, c_in, c_out, c_noise
+
+
+def bcast(v, B, like):
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(-1).expand(B)
+
+
+class ScoreWrapper:
+    """EDM-preconditioned denoiser/score over a vector backbone."""
+
+    def __init__(self, backbone, precondition_beta: bool = False):
+        self.backbone = backbone
+        self.precondition_beta = precondition_beta
+
+    def denoiser(self, ht, xt, beta):
+        B = xt.shape[0]
+        ht, beta = bcast(ht, B, xt), bcast(beta, B, xt)
+        c_s, c_in, c_out, c_noise = coeffs(ht)
+        F = self.backbone(c_noise, c_in[:, None] * xt, beta)
+        D = c_s[:, None] * xt + c_out[:, None] * F
+        if self.precondition_beta:
+            D = D * beta[:, None] + (1 - beta[:, None]) * xt
+        return D
+
+    def score(self, ht, xt, beta):
+        """(D(x) − x)/h, the score of the learned density."""
+        ht = bcast(ht, xt.shape[0], xt)
+        return (self.denoiser(ht, xt, beta) - xt) / ht[:, None]
+
+
+class EnergyWrapper:
+    """Scalar-energy head over a vector backbone via the <F(x), x> trick."""
+
+    def __init__(self, backbone, precondition_beta: bool = False):
+        self.backbone = backbone
+        self.precondition_beta = precondition_beta
+
+    def energy(self, ht, xt, beta):
+        """E_θ(h, x, β): (B,). Differentiable in ht and xt through autograd
+        (the EGCL layers' backward is kernel K3 on CUDA)."""
+        B = xt.shape[0]
+        ht, beta = bcast(ht, B, xt), bcast(beta, B, xt)
+        c_s, c_in, c_out, c_noise = coeffs(ht)
+        x_in = c_in[:, None] * xt
+        U_theta = (self.backbone(c_noise, x_in, beta) * x_in).sum(-1)
+        E = (1 - c_s) / (2 * ht) * (xt ** 2).sum(-1) - c_out / (c_in * ht) * U_theta
+        if self.precondition_beta:
+            E = E * beta
+        return E

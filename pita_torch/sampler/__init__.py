@@ -1,0 +1,20 @@
+from pita_torch.sampler.integrator import (
+    GeneratorDraws,
+    IntegrateResult,
+    IntegratorConfig,
+    integrate_sde,
+    mala,
+    negative_time_descent,
+)
+from pita_torch.sampler.terms import SDETerms, compute_sde_terms
+
+__all__ = [
+    "GeneratorDraws",
+    "IntegrateResult",
+    "IntegratorConfig",
+    "SDETerms",
+    "compute_sde_terms",
+    "integrate_sde",
+    "mala",
+    "negative_time_descent",
+]
