@@ -82,16 +82,21 @@ class EGNNBackbone(nn.Module):
             for _ in range(n_layers)
         )
 
-    def forward(self, t, x, beta):
-        B = x.shape[0]
-        N, D = self.n_particles, self.n_spatial_dim
-        xs = x.reshape(B, N, D)
+    def embed(self, t, x, beta):
+        """The node embedding h0 (B, N, F) of time and inverse temperature."""
+        B, N = x.shape[0], self.n_particles
         t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(-1).expand(B)
         feats = [t[:, None, None].expand(B, N, 1)]
         if self.condition_on_temperature:
             bb = torch.as_tensor(beta, dtype=x.dtype, device=x.device).reshape(-1).expand(B)
             feats.append(bb[:, None, None].expand(B, N, 1))
-        h = torch.cat(feats, dim=-1) @ self.w_emb + self.b_emb  # (B, N, F)
+        return torch.cat(feats, dim=-1) @ self.w_emb + self.b_emb
+
+    def forward(self, t, x, beta):
+        B = x.shape[0]
+        N, D = self.n_particles, self.n_spatial_dim
+        xs = x.reshape(B, N, D)
+        h = self.embed(t, x, beta)
 
         diff0 = xs[:, :, None, :] - xs[:, None, :, :]
         edge_attr = (diff0 * diff0).sum(-1)  # (B, N, N)

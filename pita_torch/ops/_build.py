@@ -7,8 +7,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
 The library goes to ``pita_torch/_build/<hash>/`` (listed in .gitignore),
-where the hash covers the source, the flags and the compiler path, so an
-edited source builds anew. Building happens at first use, or all at once with
+where the hash covers the source, the shared headers (``csrc/*.cuh``), the
+flags and the compiler path, so an edited source or header builds anew. Building happens at first use, or all at once with
 ``build_all`` (one ``nvcc`` process per source, started together). Nothing is
 built or loaded when the module is imported.
 """
@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("lj", "egnn_layer")
+SOURCES = ("lj", "egnn_layer", "egnn_tangent", "g_op")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +45,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str, nvcc: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + nvcc.encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 

@@ -95,15 +95,22 @@ def layer_vjp(h, x, edge_attr, gh, gx, w, **cfg):
         return torch.autograd.grad((h_out, x_out), ins, (gh, gx))
 
 
+def rounded_weights(w, cd) -> dict:
+    """The weights as the matmuls see them: those that enter one rounded to
+    ``cd``, all as f32."""
+    if cd == torch.float32:
+        return w
+    return {f: (v.to(cd).float() if f in _MM_FIELDS else v) for f, v in w.items()}
+
+
 def pack_weights(w, cd=torch.float32) -> torch.Tensor:
-    """The 15 weights as one f32 buffer in the layout of csrc/egnn_layer.cu:
+    """The 15 weights as one f32 buffer in the layout of csrc/egnn_common.cuh:
     each array flattened, padded to a multiple of 4 floats, matmul weights
     rounded to ``cd``."""
+    w = rounded_weights(w, cd)
     parts = []
     for f in W_FIELDS:
         v = w[f].detach().float().reshape(-1)
-        if f in _MM_FIELDS and cd != torch.float32:
-            v = v.to(cd).float()
         parts.append(torch.nn.functional.pad(v, (0, (-v.numel()) % 4)))
     return torch.cat(parts).contiguous()
 

@@ -36,7 +36,23 @@ from pita_torch.utils.mean_free import remove_mean
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
     """Sampler configuration: the fields of pita_tpu's IntegratorConfig that
-    this path reads (configs/model/energytemp.yaml:72-87 defaults)."""
+    this path reads (configs/model/energytemp.yaml:72-87 defaults).
+
+    ``divergence_mode``: "exact" (Jacobian trace; EGNN backbones take the
+    edge-operator route), "exact_generic" (D VJPs) or "hutchinson".
+    ``divergence_chunk_size`` chains and ``divergence_tangent_chunk`` tangents
+    are in flight at a time in the exact modes. ``divergence_g_kernel`` takes
+    the dominant contraction of the edge-operator route from the G-operator
+    kernel (K5, ``pita_torch/ops/g_op.py``); ``divergence_tangent_kernel``
+    (pita_tpu's ``pallas_divergence``) takes the whole trace in forward mode
+    from the layer tangent kernel (K4, ``pita_torch/ops/egnn_tangent.py``),
+    ``kernel_tangent_chunk`` tangents to a block (``pallas_tangent_chunk``).
+    With both off G is materialized and contracted by ``torch.einsum``.
+    pita_tpu's ``g_rows_per_block``, ``pallas_divergence_block_b``,
+    ``pallas_interpret`` and ``segment_size`` and its
+    PITA_TPU_ENABLE_EXPERIMENTAL_PALLAS gate are TPU tiling and compile
+    matters and have no counterpart here.
+    """
 
     num_integration_steps: int = 1000
     start_resampling_step: int = 0
@@ -52,7 +68,12 @@ class IntegratorConfig:
     adaptive_mcmc: bool = True
     should_mean_free: bool = True
     debias_inference: bool = True
-    divergence_mode: str = "hutchinson"
+    divergence_mode: str = "exact"
+    divergence_chunk_size: Optional[int] = None
+    divergence_tangent_chunk: Optional[int] = None
+    divergence_g_kernel: bool = False
+    divergence_tangent_kernel: bool = False
+    kernel_tangent_chunk: int = 8
     hutchinson_probes: int = 1
     weight_clip_quantile: float = 0.9
     ess_resampling_threshold: Optional[float] = None
@@ -74,8 +95,8 @@ class GeneratorDraws:
     """The sampler's random numbers from one ``torch.Generator``.
 
     Each method is called once per use, in sampler order: ``noise`` and
-    ``resample_u0`` every step, ``probes`` on steps that recompute the
-    divergence, ``end_u0`` once, ``descent_noise`` per Langevin descent step,
+    ``resample_u0`` every step, ``probes`` on steps that recompute a
+    Hutchinson divergence, ``end_u0`` once, ``descent_noise`` per Langevin descent step,
     ``mala_noise`` and ``mala_uniform`` per MALA step.
     """
 
@@ -164,12 +185,18 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
         t = times[i].expand(B)
         override = div_c if carry_div and not rediv[i] else None
         probes = None
-        if weights_on and override is None and cfg.debias_inference:
+        if (weights_on and override is None and cfg.debias_inference
+                and cfg.divergence_mode == "hutchinson"):
             probes = draws.probes(i, cfg.hutchinson_probes, (B, D))
         terms = compute_sde_terms(
             score_wrapper, energy_wrapper, noise_schedule, annealing_schedule, t, x, beta,
             debias=cfg.debias_inference, compute_weights=weights_on,
             clip_quantile=cfg.weight_clip_quantile, divergence_mode=cfg.divergence_mode,
+            divergence_chunk_size=cfg.divergence_chunk_size,
+            divergence_tangent_chunk=cfg.divergence_tangent_chunk,
+            divergence_g_kernel=cfg.divergence_g_kernel,
+            divergence_tangent_kernel=cfg.divergence_tangent_kernel,
+            kernel_tangent_chunk=cfg.kernel_tangent_chunk,
             probes=probes, div_bt_override=override,
         )
         div_new = terms.divergence if terms.divergence is not None else div_c

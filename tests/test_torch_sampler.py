@@ -98,14 +98,14 @@ class JaxDraws:
         return self._t(jax.random.uniform(self.mala[k][1], shape))
 
 
-def _pair(seed):
-    mod = JaxEGNN(n_particles=13, hidden_nf=8, n_layers=2)
+def _pair(seed, n_layers=2):
+    mod = JaxEGNN(n_particles=13, hidden_nf=8, n_layers=n_layers)
     params = [mod.init(jax.random.PRNGKey(seed + i), jnp.zeros((2,)), jnp.zeros((2, 39)), 1.0)
               for i in range(2)]
     nets = []
     for p in params:
-        bb = EGNNBackbone(13, hidden_nf=8, n_layers=2)
-        bb.load_state_dict(load_egnn_params(serialization.to_bytes(p), 2))
+        bb = EGNNBackbone(13, hidden_nf=8, n_layers=n_layers)
+        bb.load_state_dict(load_egnn_params(serialization.to_bytes(p), n_layers))
         nets.append(bb)
     return mod, params, nets
 
@@ -175,6 +175,146 @@ def test_integrate_sde_same_ancestors_when_resampling_fires():
                                atol=1e-4 * np.abs(s_r).max())
 
 
+EXACT = dict(divergence_mode="exact", resampling_interval=1, should_mean_free=True)
+
+
+def _terms_both(jax_kw, torch_kw, seed=0, B=4):
+    from pita_tpu.sampler.terms import compute_sde_terms as jax_terms
+    from pita_torch.sampler import compute_sde_terms
+
+    # 3 layers: the G-operator contraction of a layer reaches the trace only
+    # through the next layer
+    mod, (ps, pe), (bs, be) = _pair(seed, n_layers=3)
+    sched_kw = dict(sigma_min=0.05, sigma_max=10.0, rho=7.0)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, 39)).astype(np.float32) * 1.5
+    t = rng.uniform(0.2, 0.9, size=B).astype(np.float32)
+    ref = jax_terms(JaxScore(mod), JaxEnergy(mod), ps, pe, JaxSched(**sched_kw),
+                    JaxConst(annealing_factor=1.2), jnp.asarray(t), jnp.asarray(x), 1.0,
+                    **jax_kw)
+    got = compute_sde_terms(ScoreWrapper(bs), EnergyWrapper(be),
+                            ElucidatingNoiseSchedule(**sched_kw),
+                            ConstantAnnealingSchedule(annealing_factor=1.2),
+                            torch.as_tensor(t), torch.as_tensor(x), 1.0, **torch_kw)
+    return ref, got
+
+
+@pytest.mark.parametrize("route,jax_kw,torch_kw,tol", [
+    # f32 in both: reassociation, and pita_tpu's transposed y-operator gathers
+    # (tests/test_torch_egnn_fast.py), far below 1e-4 on freshly initialized weights
+    ("default", dict(divergence_mode="exact"), dict(divergence_mode="exact"), 1e-4),
+    ("chunked", dict(divergence_mode="exact", divergence_chunk_size=3,
+                     divergence_tangent_chunk=16),
+     dict(divergence_mode="exact", divergence_chunk_size=3, divergence_tangent_chunk=16), 1e-4),
+    # G and Bv rounded to bf16 in both (the tolerance of pita_tpu's test of this route)
+    ("g_kernel", dict(divergence_mode="exact", divergence_g_kernel=True, pallas_interpret=True),
+     dict(divergence_mode="exact", divergence_g_kernel=True), 2e-2),
+    # forward mode through the layer tangent (pita_tpu's own tolerance for its Pallas trace)
+    ("tangent_kernel", dict(divergence_mode="exact", pallas_divergence=True,
+                            pallas_tangent_chunk=8, pallas_interpret=True),
+     dict(divergence_mode="exact", divergence_tangent_kernel=True, kernel_tangent_chunk=8), 2e-3),
+    ("exact_generic", dict(divergence_mode="exact_generic"),
+     dict(divergence_mode="exact_generic", divergence_chunk_size=2), 1e-4),
+])
+def test_compute_sde_terms_exact_matches_jax(route, jax_kw, torch_kw, tol):
+    ref, got = _terms_both(jax_kw, torch_kw)
+    for name in ("divergence", "drift_A", "cross_term", "dUt_dt", "drift_X"):
+        r = np.asarray(getattr(ref, name))
+        np.testing.assert_allclose(getattr(got, name).numpy(), r, rtol=tol,
+                                   atol=tol * np.abs(r).max(), err_msg=f"{route}: {name}")
+
+
+def test_compute_sde_terms_refuses_unported_modes():
+    from pita_torch.sampler import compute_sde_terms
+
+    _, _, (bs, be) = _pair(0)
+    args = (ElucidatingNoiseSchedule(sigma_min=0.05, sigma_max=10.0),
+            ConstantAnnealingSchedule(annealing_factor=1.2), torch.full((2,), 0.5),
+            torch.zeros(2, 39) + torch.arange(39.0) * 0.1, 1.0)
+    with pytest.raises(NotImplementedError, match="hutchpp"):
+        compute_sde_terms(ScoreWrapper(bs), EnergyWrapper(be), *args, divergence_mode="hutchpp")
+    with pytest.raises(NotImplementedError, match="Laplacian"):
+        compute_sde_terms(None, EnergyWrapper(be), *args, divergence_mode="exact")
+
+
+class NoProbes(JaxDraws):
+    def probes(self, i, num_probes, shape):
+        raise AssertionError("the exact divergence draws no probes")
+
+
+@pytest.mark.parametrize("interval", [1, 3])
+def test_integrate_sde_exact_matches_jax_without_resampling(interval, monkeypatch):
+    """7 EM steps in exact mode, the divergence recomputed every ``interval``
+    steps and carried in between, weights accumulating and resampling never
+    firing. No probes are drawn."""
+    monkeypatch.setattr(sys.modules[__name__], "JaxDraws", NoProbes)
+    cfg = dict(EXACT, num_integration_steps=7, end_resampling_step=7,
+               ess_resampling_threshold=0.0, divergence_update_interval=interval,
+               divergence_chunk_size=4)
+    ref, got = _run_both(cfg)
+    lw_r = np.asarray(ref.logweights)
+    # f32 networks in two frameworks, 7 steps compounding reassociation error
+    np.testing.assert_allclose(got.logweights.numpy(), lw_r, rtol=1e-3,
+                               atol=1e-4 * np.abs(lw_r).max())
+    s_r = np.asarray(ref.samples)
+    np.testing.assert_allclose(got.samples.numpy(), s_r, rtol=1e-3,
+                               atol=1e-4 * np.abs(s_r).max())
+    np.testing.assert_array_equal(got.num_unique.numpy(), np.asarray(ref.num_unique))
+    for k in ("divergence", "cross_term", "dUt_dt"):
+        np.testing.assert_allclose(got.term_stats[k].numpy(), np.asarray(ref.term_stats[k]),
+                                   rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("switch,module,plain", [
+    ("divergence_g_kernel", "pita_torch.ops.g_op", "g_operator_contract_plain"),
+    ("divergence_tangent_kernel", "pita_torch.ops.egnn_tangent", "layer_tangent"),
+])
+def test_integrate_sde_exact_kernel_routes_match_default(switch, module, plain, monkeypatch):
+    """Each kernel switch reaches its route (on the CPU the kernel's plain
+    version, counted here) and moves only the weights: the samples are
+    identical with resampling off, the log-weights agree to the route's
+    rounding."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    real, calls = getattr(mod, plain), []
+    monkeypatch.setattr(mod, plain, lambda *a, **k: calls.append(1) or real(*a, **k))
+    _, _, (bs, be) = _pair(1, n_layers=3)
+    sched = ElucidatingNoiseSchedule(sigma_min=0.05, sigma_max=10.0, rho=7.0)
+    x1 = torch.as_tensor(np.random.default_rng(1).normal(size=(5, 39)).astype(np.float32))
+    base = IntegratorConfig(**EXACT, num_integration_steps=4, end_resampling_step=4,
+                            ess_resampling_threshold=0.0)
+    run = lambda cfg: integrate_sde(x1, ScoreWrapper(bs), EnergyWrapper(be), sched,
+                                    ConstantAnnealingSchedule(annealing_factor=1.2),
+                                    LJ13(temperature=2.0), 1.0, cfg, seed=5, device="cpu")
+    r0 = run(base)
+    assert not calls  # the default route materializes G and calls neither
+    r1 = run(base.replace(**{switch: True}))
+    # 4 steps x (1 launch of K5: layer 1 of 3 | 3 layers of K4, 39 tangents in one super-chunk)
+    assert len(calls) == (4 if switch == "divergence_g_kernel" else 12)
+    torch.testing.assert_close(r1.samples, r0.samples, rtol=0, atol=0)
+    tol = 2e-2 if switch == "divergence_g_kernel" else 1e-4  # bf16 G; f32 forward mode
+    for a, b in ((r1.logweights, r0.logweights),
+                 (r1.term_stats["divergence"], r0.term_stats["divergence"])):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+def test_integrate_sde_exact_same_ancestors_when_resampling_fires():
+    """Exact mode with resampling at every step (the reference's default):
+    it fires at step 0 and both samplers pick the same ancestors."""
+    cfg = dict(EXACT, num_integration_steps=1, end_resampling_step=1)
+    ref, got = _run_both(cfg, seed=4, B=8)
+    assert np.all(np.asarray(ref.logweights)[0] == 0) and np.all(got.logweights.numpy()[0] == 0)
+    assert int(got.num_unique[0]) == int(ref.num_unique[0]) < 8
+    s_r = np.asarray(ref.samples)
+    np.testing.assert_allclose(got.samples.numpy(), s_r, rtol=1e-4,
+                               atol=1e-5 * np.abs(s_r).max())
+
+
+def test_default_divergence_mode_is_exact():
+    assert IntegratorConfig().divergence_mode == JaxConfig().divergence_mode == "exact"
+
+
 def test_port_imports_no_jax():
     """Every pita_torch module, and chip_smoke.py, imports under a hook that
     refuses jax, flax, msgpack and pita_tpu."""
@@ -189,8 +329,12 @@ sys.meta_path.insert(0, Block())
 for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
     del sys.modules[m]
 import pita_torch
-for info in pkgutil.walk_packages(pita_torch.__path__, "pita_torch."):
-    importlib.import_module(info.name)
+names = [info.name for info in pkgutil.walk_packages(pita_torch.__path__, "pita_torch.")]
+for name in ("pita_torch.nets.egnn_fast", "pita_torch.ops.g_op", "pita_torch.ops.egnn_tangent",
+             "pita_torch.ops.divergence", "pita_torch.sampler.terms"):
+    assert name in names, name
+for name in names:
+    importlib.import_module(name)
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
 print("ok")
@@ -213,6 +357,12 @@ def test_entry_points_need_a_gpu_unless_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no GPU"):
         integrate_sde(torch.zeros(2, 39), None, None, None, None, LJ13(), 1.0,
                       IntegratorConfig(num_integration_steps=1))
+    # the callers of score_divergence_fast: every exact route of integrate_sde
+    for kw in (dict(), dict(divergence_g_kernel=True), dict(divergence_tangent_kernel=True)):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            integrate_sde(torch.zeros(2, 39), None, None, None, None, LJ13(), 1.0,
+                          IntegratorConfig(num_integration_steps=1, divergence_mode="exact",
+                                           **kw))
     assert resolve_device("cpu").type == "cpu"
 
 
