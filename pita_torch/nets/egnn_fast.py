@@ -32,79 +32,10 @@ ragged chunks (static shapes) is not carried over: the loops take a short
 last chunk. Everything here is inference: it runs under ``torch.no_grad``.
 """
 
-from typing import NamedTuple
-
 import torch
 
 from pita_torch.nets.precondition import bcast, coeffs
-from pita_torch.ops.egnn_layer import _mm, _sigmoid, _silu, rounded_weights
-
-
-def _silu_prime(z):
-    s = _sigmoid(z)
-    return s * (1 + z * (1 - s))
-
-
-def _pair_diff_radial(x):
-    """(diff, ‖x_i − x_j‖²); diff: (B, N, N, 3), computed directly: the
-    identity ‖xi‖²+‖xj‖²−2x·xᵀ cancels for close pairs and the tangents
-    amplify the error by 1/norm."""
-    diff = x[:, :, None, :] - x[:, None, :, :]
-    return diff, (diff * diff).sum(-1)
-
-
-class _LayerActs(NamedTuple):
-    """Primal activations one EGCL layer needs for its tangent operators."""
-
-    x_in: torch.Tensor  # (B, N, 3) layer input coordinates
-    diff: torch.Tensor  # (B, N, N, 3) pairwise differences of x_in
-    h_in: torch.Tensor  # (B, N, F) layer input node features
-    norm: torch.Tensor  # (B, N, N)
-    sp1: torch.Tensor  # silu'(z1)
-    sp2: torch.Tensor  # silu'(z2)
-    m_pre: torch.Tensor  # silu(z2) before attention
-    att: torch.Tensor  # (B, N, N)
-    sp_cz: torch.Tensor  # silu'(cz)
-    cm: torch.Tensor  # (B, N, N) coordinate-MLP scalar
-    w: torch.Tensor  # (B, N, N) masked a/(norm+1) coordinate weights
-    sp_n: torch.Tensor  # (B, N, F) silu'(node hidden)
-
-
-def _layer_forward(w, h, x, edge_attr, mask, coords_range, attention, tanh, cd):
-    """One EGCL layer keeping its activations; returns (h_out, x_out, acts).
-    The same operations as ``pita_torch.ops.egnn_layer.layer_step``."""
-    diff, radial = _pair_diff_radial(x)
-    norm = torch.sqrt(radial + 1e-8)
-    denom = norm + 1.0
-
-    src = _mm(h, w["w_src"], cd) + w["b_src"]
-    dst = _mm(h, w["w_dst"], cd)
-    scal = radial[..., None] * w["w_scal"][0] + edge_attr[..., None] * w["w_scal"][1]
-    z1 = src[:, :, None, :] + dst[:, None, :, :] + scal
-    z2 = _mm(_silu(z1), w["w_e2"], cd) + w["b_e2"]
-    m_pre = _silu(z2)
-    if attention:
-        att = _sigmoid((m_pre * w["w_att"][:, 0]).sum(-1) + w["b_att"][0])
-    else:
-        att = torch.ones_like(z2[..., 0])
-    m = m_pre * (att * mask)[..., None]
-
-    cz = _mm(m, w["w_c1"], cd) + w["b_c1"]
-    cm = (_silu(cz) * w["w_c2"][:, 0]).sum(-1)
-    a = torch.tanh(cm) * coords_range if tanh else cm
-    wgt = (a * mask) / denom
-    x_out = x + x * wgt.sum(-1)[..., None] - wgt @ x
-
-    agg = m.sum(-2)
-    nz = _mm(torch.cat([h, agg], dim=-1), w["w_n1"], cd) + w["b_n1"]
-    h_out = h + _mm(_silu(nz), w["w_n2"], cd) + w["b_n2"]
-
-    acts = _LayerActs(
-        x_in=x, diff=diff, h_in=h, norm=norm,
-        sp1=_silu_prime(z1), sp2=_silu_prime(z2), m_pre=m_pre, att=att,
-        sp_cz=_silu_prime(cz), cm=cm, w=wgt, sp_n=_silu_prime(nz),
-    )
-    return h_out, x_out, acts
+from pita_torch.ops.egnn_layer import LayerActs, layer_step, rounded_weights
 
 
 @torch.no_grad()
@@ -118,7 +49,8 @@ def egnn_apply(backbone, t, x_flat, beta, with_acts: bool = False):
     N, D = backbone.n_particles, backbone.n_spatial_dim
     xs = x_flat.reshape(B, N, D)
     h = backbone.embed(t, x_flat, beta)
-    diff0, edge_attr = _pair_diff_radial(xs)
+    diff0 = xs[:, :, None, :] - xs[:, None, :, :]
+    edge_attr = (diff0 * diff0).sum(-1)
     mask = 1.0 - torch.eye(N, dtype=torch.float32, device=x_flat.device)
 
     xc = xs
@@ -128,10 +60,9 @@ def egnn_apply(backbone, t, x_flat, beta, with_acts: bool = False):
         cfg = layer.cfg
         coords_range = cfg["coords_range"]
         w = layer.weights()
-        h, xc, acts = _layer_forward(w, h, xc, edge_attr, mask, coords_range,
-                                     cfg["attention"], cfg["tanh"], cfg["cd"])
+        h, xc, *acts = layer_step(h, xc, edge_attr, w, **cfg, with_acts=with_acts)
         weights.append(w)
-        all_acts.append(acts)
+        all_acts.extend(acts)
 
     vel = xc - xs
     vel = vel - vel.mean(dim=1, keepdim=True)
@@ -141,7 +72,7 @@ def egnn_apply(backbone, t, x_flat, beta, with_acts: bool = False):
     return out
 
 
-def g_operator_args(w, acts: _LayerActs, mask, attention):
+def g_operator_args(w, acts: LayerActs, mask, attention):
     """The arguments of ``g_operator_contract`` (kernel K5) for one layer: G
     in its rank structure, never formed,
 
@@ -162,7 +93,7 @@ def g_operator_args(w, acts: _LayerActs, mask, attention):
                 satq=satq * mask[:, :, None], m_pre=acts.m_pre, w2=w2)
 
 
-def _layer_tangent_ops(w, acts: _LayerActs, diff0, mask, coords_range, attention, tanh,
+def _layer_tangent_ops(w, acts: LayerActs, diff0, mask, coords_range, attention, tanh,
                        materialize_g: bool = True):
     """Tangent-independent per-edge operators of one layer.
 

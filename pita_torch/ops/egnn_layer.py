@@ -19,6 +19,7 @@ the plain version.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,32 +52,59 @@ def _silu(z):
     return z * _sigmoid(z)
 
 
+def _silu_prime(z):
+    s = _sigmoid(z)
+    return s * (1 + z * (1 - s))
+
+
+class LayerActs(NamedTuple):
+    """Primal activations of one EGCL layer that its tangent map needs."""
+
+    x_in: torch.Tensor  # (B, N, 3) layer input coordinates
+    diff: torch.Tensor  # (B, N, N, 3) pairwise differences of x_in
+    h_in: torch.Tensor  # (B, N, F) layer input node features
+    norm: torch.Tensor  # (B, N, N)
+    sp1: torch.Tensor  # silu'(z1)
+    sp2: torch.Tensor  # silu'(z2)
+    m_pre: torch.Tensor  # silu(z2) before attention
+    att: torch.Tensor  # (B, N, N)
+    sp_cz: torch.Tensor  # silu'(cz)
+    cm: torch.Tensor  # (B, N, N) coordinate-MLP scalar
+    w: torch.Tensor  # (B, N, N) masked a/(norm+1) coordinate weights
+    sp_n: torch.Tensor  # (B, N, F) silu'(node hidden)
+
+
 def layer_step(h, x, edge_attr, w, *, attention=True, tanh=True, coords_range=5.0,
-               cd=torch.float32):
-    """Plain version of one EGCL layer; returns (h_out, x_out).
+               cd=torch.float32, with_acts=False):
+    """Plain version of one EGCL layer; returns (h_out, x_out), and with
+    ``with_acts`` also the ``LayerActs`` of this primal pass.
 
     h: (B, N, F); x: (B, N, 3); edge_attr: (B, N, N); w: dict of the 15
     weights in the JAX (in, out) layout.
     """
     N = x.shape[-2]
     mask = 1.0 - torch.eye(N, dtype=torch.float32, device=x.device)
+    # direct differences: the identity |xi|^2 + |xj|^2 - 2 x.xT cancels for
+    # close pairs, and the tangents amplify the error by 1/norm
     diff = x[..., :, None, :] - x[..., None, :, :]  # (B, N, N, 3)
     radial = (diff * diff).sum(-1)
-    denom = torch.sqrt(radial + 1e-8) + 1.0
+    norm = torch.sqrt(radial + 1e-8)
+    denom = norm + 1.0
 
     src = _mm(h, w["w_src"], cd) + w["b_src"]
     dst = _mm(h, w["w_dst"], cd)
     scal = radial[..., None] * w["w_scal"][0] + edge_attr[..., None] * w["w_scal"][1]
     z1 = src[..., :, None, :] + dst[..., None, :, :] + scal  # (B, N, N, F)
-    m = _silu(_mm(_silu(z1), w["w_e2"], cd) + w["b_e2"])
+    z2 = _mm(_silu(z1), w["w_e2"], cd) + w["b_e2"]
+    m_pre = _silu(z2)
     if attention:
-        att = _sigmoid((m * w["w_att"][:, 0]).sum(-1) + w["b_att"][0])
+        att = _sigmoid((m_pre * w["w_att"][:, 0]).sum(-1) + w["b_att"][0])
     else:
-        att = torch.ones_like(m[..., 0])
-    m = m * (att * mask)[..., None]
+        att = torch.ones_like(m_pre[..., 0])
+    m = m_pre * (att * mask)[..., None]
 
-    c1 = _silu(_mm(m, w["w_c1"], cd) + w["b_c1"])
-    cm = (c1 * w["w_c2"][:, 0]).sum(-1)
+    cz = _mm(m, w["w_c1"], cd) + w["b_c1"]
+    cm = (_silu(cz) * w["w_c2"][:, 0]).sum(-1)
     a = torch.tanh(cm) * coords_range if tanh else cm
     wgt = (a * mask) / denom  # (B, N, N)
     x_out = x + x * wgt.sum(-1)[..., None] - wgt @ x
@@ -84,7 +112,14 @@ def layer_step(h, x, edge_attr, w, *, attention=True, tanh=True, coords_range=5.
     agg = m.sum(-2)  # (B, N, F)
     nz = _mm(torch.cat([h, agg], dim=-1), w["w_n1"], cd) + w["b_n1"]
     h_out = h + _mm(_silu(nz), w["w_n2"], cd) + w["b_n2"]
-    return h_out, x_out
+    if not with_acts:
+        return h_out, x_out
+    acts = LayerActs(
+        x_in=x, diff=diff, h_in=h, norm=norm,
+        sp1=_silu_prime(z1), sp2=_silu_prime(z2), m_pre=m_pre, att=att,
+        sp_cz=_silu_prime(cz), cm=cm, w=wgt, sp_n=_silu_prime(nz),
+    )
+    return h_out, x_out, acts
 
 
 def layer_vjp(h, x, edge_attr, gh, gx, w, **cfg):

@@ -28,7 +28,7 @@ import functools
 import torch
 
 from pita_torch.ops import _build
-from pita_torch.ops.egnn_layer import (_kernel_args, _sigmoid, egnn_layer_forward, pack_weights,
+from pita_torch.ops.egnn_layer import (_kernel_args, egnn_layer_forward, layer_step, pack_weights,
                                        rounded_weights)
 
 
@@ -50,33 +50,14 @@ def layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, *, attention=True, tan
     w_r, w_e = w["w_scal"][0], w["w_scal"][1]
     mask = 1.0 - torch.eye(N, dtype=torch.float32, device=x.device)
 
-    def act(z):  # silu and its derivative
-        s = _sigmoid(z)
-        return z * s, s * (1 + z * (1 - s))
-
     # primal pass, keeping what the tangents need
-    diff = x[:, :, None, :] - x[:, None, :, :]
-    radial = (diff * diff).sum(-1)
-    norm = torch.sqrt(radial + 1e-8)
+    _, _, acts = layer_step(h, x, edge_attr, w, attention=attention, tanh=tanh,
+                            coords_range=coords_range, cd=cd, with_acts=True)
+    diff, norm, sp1, sp2, m_pre, att, sp_cz, wgt, sp_n = (
+        acts.diff, acts.norm, acts.sp1, acts.sp2, acts.m_pre, acts.att, acts.sp_cz, acts.w,
+        acts.sp_n)
     denom = norm + 1.0
-    hr = _rt(h, cd)
-    src = hr @ w["w_src"] + w["b_src"]
-    dst = hr @ w["w_dst"]
-    z1 = (src[:, :, None, :] + dst[:, None, :, :]
-          + radial[..., None] * w_r + edge_attr[..., None] * w_e)
-    m1, sp1 = act(z1)
-    m_pre, sp2 = act(_rt(m1, cd) @ w["w_e2"] + w["b_e2"])
-    if attention:
-        att = _sigmoid((m_pre * w["w_att"][:, 0]).sum(-1) + w["b_att"][0])
-    else:
-        att = torch.ones_like(norm)
-    m = m_pre * (att * mask)[..., None]
-    c1, sp_cz = act(_rt(m, cd) @ w["w_c1"] + w["b_c1"])
-    cm = (c1 * w["w_c2"][:, 0]).sum(-1)
-    th = torch.tanh(cm)
-    wgt = ((th * coords_range if tanh else cm) * mask) / denom
-    agg = m.sum(-2)
-    _, sp_n = act(_rt(torch.cat([h, agg], dim=-1), cd) @ w["w_n1"] + w["b_n1"])
+    th = torch.tanh(acts.cm)
 
     # tangents; the tangent axis sits at dim 1
     ddiff = dx[:, :, :, None, :] - dx[:, :, None, :, :]  # (B, Tc, N, N, 3)
