@@ -1,0 +1,683 @@
+// K3 on tensor cores: the VJP of one EGCL layer with respect to (h, x,
+// edge_attr) in bf16 compute, sm_90a.
+//
+// Replaces the Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:169
+// _layer_bwd_kernel (called through _layer_bwd_call, egnn_fwd.py:335) for
+// compute dtype bf16; the scalar egcl_bwd_kernel of egnn_layer.cu stays the
+// kernel for f32. The function is that of egnn_layer.cu's K3: matmul inputs
+// rounded to bf16 in value, f32 accumulation, f32 elementwise math, and in
+// the VJP the rounding counts as the identity, so cotangents stay f32.
+//
+// What bounds it on the H100: per chain the edge chain runs five F x F
+// products per edge (the aggregation pass one, the edge pass two forward and
+// two transposed), 0.07 ms at 2048 chains on bf16 tensor cores, while the
+// sigmoids the function cannot avoid (sigma(z1), sigma(z2), sigma(cz), the
+// attention gate and a tanh per edge, each an exponential and a reciprocal)
+// take ~0.3 ms on the SFUs (16 per clock per SM). So the design keeps the
+// elementwise work minimal and the products on mma.sync:
+//  - One block of 4 warps per chain; warp w owns the senders j of tile w
+//    (16 edges, one m16 tile; N <= 64) and walks over all receivers i.
+//  - The edge chain z1 -> silu -> .W_e2 -> z2 -> silu*att -> .W_c1 -> cz runs
+//    as m16n8k16 bf16 products with f32 accumulators. The accumulator layout
+//    of two adjacent n8 tiles is the A-fragment layout of one k16 step, so
+//    each product feeds the next in registers; no edge vector goes through
+//    shared memory. A lane holds 2 edges x F/4 features of every F-vector.
+//  - The transposed products (.W_c1^T, .W_e2^T) take f32 cotangents split
+//    into hi = bf16(g) and lo = bf16(g - hi): two mmas against the exact bf16
+//    weights give the f32 product to ~2^-16 relative.
+//  - Each pass computes every sigmoid once and keeps it for its derivative:
+//    2F+1 per edge in the aggregation pass, 3F+2 in the edge pass, with
+//    __expf and __fdividef in the overflow-safe form of egnn_common.cuh.
+//  - Scalar heads (attention logit, cm, the radial and edge_attr cotangents)
+//    are quad shuffles; sums over a tile's edges (agg_i, the src cotangent)
+//    are in-lane adds plus a 3-level reduce-scatter, after which each lane
+//    owns one feature. The x_j cotangent stays in the owning warp's registers
+//    across all i, the dst cotangent in its own rows of shared memory (in
+//    registers it pushed the kernel past 128 registers, into spills). The
+//    warps visit the receivers in lockstep with their start points N/T
+//    apart, so at each step they add into distinct rows of the per-chain sums
+//    in shared memory: no atomics, a fixed order, a deterministic result.
+//  - The node parts (src/dst projection, node MLP forward and backward, the
+//    final dh) run on mma.sync too, one 16-node tile per warp.
+//  - Shared memory: the four edge weight matrices as bf16 (the node ones are
+//    read once per block from global memory) and the chain's node state,
+//    51.8 KB at F=32, N=55, so four blocks (16 warps) fit on an SM.
+
+#include "egnn_common.cuh"
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcMaxN = 16 * kTcWarps;  // one 16-sender tile per warp
+// four blocks (16 warps) an SM: 128 registers a thread; the shared memory
+// (51.8 KB at F=32, N=55) still fits four times
+constexpr int kTcMinBlocks = 4;
+
+// Offsets (in bf16 elements) of the matrices of the bf16 weight buffer. Each
+// is the transpose M^T of the right operand M of a product Y = A M, stored
+// row by row with K + 8 elements a row (K = rows of M), so that a lane's B
+// fragment is one 32-bit load and a warp's loads hit distinct banks.
+// Mirrored by pita_torch/ops/egnn_layer.py:pack_weights_tc.
+struct TcOff {
+  int e2f, c1f, e2b, c1b, sd, n1f, n2b, n1b, sdb, total;
+};
+
+__host__ __device__ inline TcOff tcoff(int F) {
+  TcOff o;
+  const int r1 = F + 8, r2 = 2 * F + 8;
+  int p = 0;
+  o.e2f = p; p += F * r1;      // M = W_e2
+  o.c1f = p; p += F * r1;      // M = W_c1
+  o.e2b = p; p += F * r1;      // M = W_e2^T
+  o.c1b = p; p += F * r1;      // M = W_c1^T
+  o.sd = p;  p += 2 * F * r1;  // M = [W_src | W_dst]
+  o.n1f = p; p += F * r2;      // M = W_n1
+  o.n2b = p; p += F * r1;      // M = W_n2^T
+  o.n1b = p; p += 2 * F * r1;  // M = W_n1^T
+  o.sdb = p; p += F * r2;      // M = [W_src^T ; W_dst^T]
+  o.total = p;
+  return o;
+}
+
+template <int F>
+size_t tc_smem_floats(int N) {
+  const int FS = F + 8;
+  return (size_t)2 * F * FS + 6 * F + 4 + (size_t)N * (3 * F + 2 * FS) + 3 * pad4(3 * N);
+}
+
+__device__ __forceinline__ float sigm_fast(float z) {
+  const float e = __expf(-fabsf(z));
+  return __fdividef(z >= 0.f ? 1.f : e, 1.f + e);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A tile of 16 rows x C columns in registers, in the mma accumulator layout:
+// lane (g = lane/4, t = lane%4) holds rows g (r = 0) and g + 8 (r = 1) at
+// columns col(v) = (v/2)*8 + 2t + v%2, v < C/4.
+__device__ __forceinline__ int col_of(int v, int t) { return (v >> 1) * 8 + 2 * t + (v & 1); }
+
+// A fragments of the K/16 k-steps of a 16 x K tile, rounded to bf16.
+template <int K>
+__device__ __forceinline__ void to_frag(const float (&v)[2][K / 4], uint32_t (*a)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    a[ks][0] = pack2(v[0][4 * ks], v[0][4 * ks + 1]);
+    a[ks][1] = pack2(v[1][4 * ks], v[1][4 * ks + 1]);
+    a[ks][2] = pack2(v[0][4 * ks + 2], v[0][4 * ks + 3]);
+    a[ks][3] = pack2(v[1][4 * ks + 2], v[1][4 * ks + 3]);
+  }
+}
+
+// The same for an f32 operand that must keep its f32 value: hi + lo.
+template <int K>
+__device__ __forceinline__ void to_frag_split(const float (&v)[2][K / 4], uint32_t (*hi)[4],
+                                              uint32_t (*lo)[4]) {
+  float r[2][K / 4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int k = 0; k < K / 4; ++k)
+      r[q][k] = v[q][k] - __bfloat162float(__float2bfloat16(v[q][k]));
+  to_frag<K>(v, hi);
+  to_frag<K>(r, lo);
+}
+
+// acc (16 x NO) += A (16 x K, fragments a) . M, with M^T at mt (rows of K+8)
+template <int K, int NO>
+__device__ __forceinline__ void mm(float (&acc)[2][NO / 4], const uint32_t (*a)[4],
+                                   const __nv_bfloat16* mt, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NO / 8; ++nt) {
+    float d[4] = {acc[0][2 * nt], acc[0][2 * nt + 1], acc[1][2 * nt], acc[1][2 * nt + 1]};
+    const __nv_bfloat16* row = mt + (nt * 8 + g) * (K + 8) + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row + ks * 16);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + ks * 16 + 8);
+      mma16816(d, a[ks], b0, b1);
+    }
+    acc[0][2 * nt] = d[0];
+    acc[0][2 * nt + 1] = d[1];
+    acc[1][2 * nt] = d[2];
+    acc[1][2 * nt + 1] = d[3];
+  }
+}
+
+// rows row0 + g + 8r (< nrows, else 0) of a row-major f32 array, C columns
+template <int C>
+__device__ __forceinline__ void load_tile(float (&v)[2][C / 4], const float* base, int ld,
+                                          int row0, int nrows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt) {
+      float2 p = make_float2(0.f, 0.f);
+      if (row < nrows) p = *reinterpret_cast<const float2*>(base + row * ld + nt * 8 + 2 * t);
+      v[r][2 * nt] = p.x;
+      v[r][2 * nt + 1] = p.y;
+    }
+  }
+}
+
+// columns [c0, c0 + C) of a 16 x * tile into rows row0 + g + 8r < nrows
+template <int C, int CT>
+__device__ __forceinline__ void store_tile(const float (&v)[2][CT / 4], int c0, float* base,
+                                           int ld, int row0, int nrows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= nrows) continue;
+#pragma unroll
+    for (int nt = 0; nt < C / 8; ++nt)
+      *reinterpret_cast<float2*>(base + row * ld + nt * 8 + 2 * t) =
+          make_float2(v[r][c0 / 4 + 2 * nt], v[r][c0 / 4 + 2 * nt + 1]);
+  }
+}
+
+// sum over the quad (the 4 lanes that share a tile row)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// one level of a reduce-scatter over lanes lane ^ m: keep half the values
+template <int H>
+__device__ __forceinline__ void halve(float* p, int lane, int m, int& base) {
+  const bool up = lane & m;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? p[k] : p[k + H];
+    const float keep = up ? p[k + H] : p[k];
+    p[k] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+  }
+  if (up) base += H;
+}
+
+// Column sums of a tile row-pair p[v] (already summed over the lane's two
+// rows) over the 8 row groups: returns one total, of column col_of(vi, t);
+// for F = 16 lanes lane and lane ^ 4 hold the same one (owner: lane & 4 == 0).
+template <int V>
+__device__ __forceinline__ float col_sum(float (&p)[V], int lane, int& vi) {
+  int base = 0;
+  if constexpr (V == 8) {
+    halve<4>(p, lane, 16, base);
+    halve<2>(p, lane, 8, base);
+    halve<1>(p, lane, 4, base);
+  } else {
+    static_assert(V == 4, "F must be 16 or 32");
+    halve<2>(p, lane, 16, base);
+    halve<1>(p, lane, 8, base);
+    p[0] += __shfl_xor_sync(0xffffffffu, p[0], 4);
+  }
+  vi = base;
+  return p[0];
+}
+
+struct Smem {
+  const __nv_bfloat16 *e2f, *c1f, *e2b, *c1b;
+  const float *wr, *we, *be2, *watt, *bc1, *wc2, *batt;
+  // rows of F floats: src, agg, gagg (a warp reads one row at a time);
+  // rows of F + 8: dst, gdst (a warp reads 8 rows at once, on distinct banks)
+  float *src, *dst, *gdst, *agg, *gagg, *x, *gx, *dxr;
+};
+
+// Per-edge geometry of the lane's two rows (senders j0 + g + 8r) for
+// receiver i; a row without an edge (j >= N or j == i) runs the diagonal.
+struct Geo {
+  float d[2][3], rad[2], eij[2], vm[2];
+  int jj[2], j[2];
+};
+
+__device__ __forceinline__ void edge_geo(Geo& e, const Smem& s, const float* eab, int i, int j0,
+                                         int N, int lane) {
+  const int g = lane >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + g + 8 * r;
+    const bool valid = j < N && j != i;
+    const int jj = j < N ? j : i;
+    e.j[r] = j;
+    e.jj[r] = jj;
+    e.vm[r] = valid ? 1.f : 0.f;
+    float rad = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      e.d[r][k] = s.x[3 * i + k] - s.x[3 * jj + k];
+      rad += e.d[r][k] * e.d[r][k];
+    }
+    e.rad[r] = rad;
+    e.eij[r] = eab[i * N + jj];
+  }
+}
+
+// The front of the edge chain for receiver i and the lane's edges: z1 and
+// its sigmoid derivative (ds1, if wanted), the products to z2, m_pre =
+// silu(z2), its derivative (ds2, if wanted) and the attention gate per row.
+template <int F, bool GRAD>
+__device__ __forceinline__ void edge_front(const Smem& s, const Geo& e, int i, const Cfg& c,
+                                           int lane, float (&ds1)[2][F / 4],
+                                           float (&mp)[2][F / 4], float (&ds2)[2][F / 4],
+                                           float (&att)[2]) {
+  constexpr int V = F / 4, FS = F + 8;
+  const int t = lane & 3;
+  float z[2][V];
+#pragma unroll
+  for (int v = 0; v < V; v += 2) {
+    const int col = col_of(v, t);
+    const float2 si = *reinterpret_cast<const float2*>(s.src + i * F + col);
+    const float2 wr = *reinterpret_cast<const float2*>(s.wr + col);
+    const float2 we = *reinterpret_cast<const float2*>(s.we + col);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 dj = *reinterpret_cast<const float2*>(s.dst + e.jj[r] * FS + col);
+      z[r][v] = (si.x + dj.x) + (e.rad[r] * wr.x + e.eij[r] * we.x);
+      z[r][v + 1] = (si.y + dj.y) + (e.rad[r] * wr.y + e.eij[r] * we.y);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float sg = sigm_fast(z[r][v]);
+      if (GRAD) ds1[r][v] = sg * (1.f + z[r][v] * (1.f - sg));
+      z[r][v] *= sg;  // silu(z1)
+    }
+  uint32_t a[F / 16][4];
+  to_frag<F>(z, a);
+#pragma unroll
+  for (int v = 0; v < V; ++v) mp[0][v] = mp[1][v] = s.be2[col_of(v, t)];
+  mm<F, F>(mp, a, s.e2f, lane);  // z2
+  float lg[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float z2 = mp[r][v];
+      const float sg = sigm_fast(z2);
+      mp[r][v] = z2 * sg;
+      if (GRAD) ds2[r][v] = sg * (1.f + z2 * (1.f - sg));
+      lg[r] += mp[r][v] * s.watt[col_of(v, t)];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    att[r] = c.attention ? sigm_fast(quad_sum(lg[r]) + s.batt[0]) : 1.f;
+}
+
+template <int F>
+__global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
+egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
+                   const float* __restrict__ ea, const float* __restrict__ gh,
+                   const float* __restrict__ gx, const float* __restrict__ wts,
+                   const __nv_bfloat16* __restrict__ wtc, float* __restrict__ dh,
+                   float* __restrict__ dx, float* __restrict__ dea, Cfg c) {
+  static_assert(F == 16 || F == 32, "F must be 16 or 32");
+  constexpr int V = F / 4, FS = F + 8, KS = F / 16;
+  extern __shared__ float4 smem4[];
+  const WOff o = woff(F);
+  const TcOff q = tcoff(F);
+  const int N = c.N, X3 = pad4(3 * N), tid = threadIdx.x;
+  const int b = blockIdx.x, lane = tid & 31, warp = tid >> 5, t = lane & 3;
+  const int T = (N + 15) / 16;      // sender tiles, one per warp
+  const int off = (N + T - 1) / T;  // lockstep offset between the warps' receivers
+
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  float* vec = reinterpret_cast<float*>(wsm + 4 * F * FS);
+  Smem s;
+  s.e2f = wsm + q.e2f;
+  s.c1f = wsm + q.c1f;
+  s.e2b = wsm + q.e2b;
+  s.c1b = wsm + q.c1b;
+  s.wr = vec;
+  s.we = vec + F;
+  s.be2 = vec + 2 * F;
+  s.watt = vec + 3 * F;
+  s.bc1 = vec + 4 * F;
+  s.wc2 = vec + 5 * F;
+  s.batt = vec + 6 * F;
+  s.src = vec + 6 * F + 4;
+  s.dst = s.src + N * F;
+  s.gdst = s.dst + N * FS;
+  s.agg = s.gdst + N * FS;  // later the src cotangent
+  s.gagg = s.agg + N * F;
+  s.x = s.gagg + N * F;
+  s.gx = s.x + X3;
+  s.dxr = s.gx + X3;
+
+  // prologue: edge weights, vectors, coordinates; zeroed sums
+  {
+    const uint4* wg = reinterpret_cast<const uint4*>(wtc);
+    uint4* ws = reinterpret_cast<uint4*>(wsm);
+    for (int k = tid; k < 4 * F * FS / 8; k += kTcThreads) ws[k] = wg[k];
+    for (int k = tid; k < F; k += kTcThreads) {
+      vec[k] = wts[o.scal + k];
+      vec[F + k] = wts[o.scal + F + k];
+      vec[2 * F + k] = wts[o.be2 + k];
+      vec[3 * F + k] = wts[o.att + k];
+      vec[4 * F + k] = wts[o.bc1 + k];
+      vec[5 * F + k] = wts[o.c2 + k];
+    }
+    if (tid == 0) vec[6 * F] = wts[o.batt];
+    const float* xb = x + (size_t)b * N * 3;
+    const float* gxb = gx + (size_t)b * N * 3;
+    for (int k = tid; k < 3 * N; k += kTcThreads) {
+      s.x[k] = xb[k];
+      s.gx[k] = gxb[k];
+      s.dxr[k] = 0.f;
+    }
+    for (int k = tid; k < N * F; k += kTcThreads) s.agg[k] = 0.f;
+    for (int k = tid; k < N * FS; k += kTcThreads) s.gdst[k] = 0.f;
+  }
+  const float* hb = h + (size_t)b * N * F;
+  const float* ghb = gh + (size_t)b * N * F;
+  float* dhb = dh + (size_t)b * N * F;
+  const int n0 = 16 * warp;  // this warp's node tile and sender tile
+  if (warp < T) {  // src | dst = R(h) [W_src | W_dst] + [b_src | 0]
+    float hv[2][V];
+    load_tile<F>(hv, hb, F, n0, N, lane);
+    uint32_t a[KS][4];
+    to_frag<F>(hv, a);
+    float sd[2][2 * V];
+#pragma unroll
+    for (int v = 0; v < 2 * V; ++v) {
+      const int col = col_of(v, t);
+      sd[0][v] = sd[1][v] = col < F ? wts[o.bsrc + col] : 0.f;
+    }
+    mm<F, 2 * F>(sd, a, wtc + q.sd, lane);
+    store_tile<F, 2 * F>(sd, 0, s.src, F, n0, N, lane);
+    store_tile<F, 2 * F>(sd, F, s.dst, FS, n0, N, lane);
+  }
+  __syncthreads();
+
+  const float* eab = ea + (size_t)b * N * N;
+  float ds_unused[2][V];
+
+  // P1: the aggregation agg_i = sum_j m_ij (first edge product only)
+  for (int step = 0; step < N; ++step) {
+    if (warp < T) {
+      const int i = (step + warp * off) % N;
+      Geo e;
+      edge_geo(e, s, eab, i, n0, N, lane);
+      float mp[2][V], att[2];
+      edge_front<F, false>(s, e, i, c, lane, ds_unused, mp, ds_unused, att);
+      float p[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        p[v] = mp[0][v] * (att[0] * e.vm[0]) + mp[1][v] * (att[1] * e.vm[1]);
+      int vi;
+      const float tot = col_sum<V>(p, lane, vi);
+      if (V == 8 || !(lane & 4)) s.agg[i * F + col_of(vi, t)] += tot;
+    }
+    __syncthreads();
+  }
+
+  // P2: node MLP backward, one 16-node tile per warp; dh gets gh + its part
+  if (warp < T) {
+    uint32_t a[2 * KS][4];
+    {
+      float hv[2][V], av[2][V];
+      load_tile<F>(hv, hb, F, n0, N, lane);
+      load_tile<F>(av, s.agg, F, n0, N, lane);
+      to_frag<F>(hv, a);
+      to_frag<F>(av, a + KS);
+    }
+    float nz[2][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) nz[0][v] = nz[1][v] = wts[o.bn1 + col_of(v, t)];
+    mm<2 * F, F>(nz, a, wtc + q.n1f, lane);
+    float ghv[2][V], gs[2][V];
+    load_tile<F>(ghv, ghb, F, n0, N, lane);
+    uint32_t hi[KS][4], lo[KS][4];
+    to_frag_split<F>(ghv, hi, lo);
+#pragma unroll
+    for (int v = 0; v < V; ++v) gs[0][v] = gs[1][v] = 0.f;
+    mm<F, F>(gs, hi, wtc + q.n2b, lane);
+    mm<F, F>(gs, lo, wtc + q.n2b, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) gs[r][v] *= dsilu(nz[r][v]);
+    to_frag_split<F>(gs, hi, lo);
+    float gin[2][2 * V];
+#pragma unroll
+    for (int v = 0; v < 2 * V; ++v) gin[0][v] = gin[1][v] = 0.f;
+    mm<F, 2 * F>(gin, hi, wtc + q.n1b, lane);
+    mm<F, 2 * F>(gin, lo, wtc + q.n1b, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) gin[r][v] += ghv[r][v];
+    store_tile<F, 2 * F>(gin, 0, dhb, F, n0, N, lane);
+    store_tile<F, 2 * F>(gin, F, s.gagg, F, n0, N, lane);
+  }
+  __syncthreads();
+  for (int k = tid; k < N * F; k += kTcThreads) s.agg[k] = 0.f;  // now the src cotangent
+  __syncthreads();
+
+  // P3: edge backward; the sender tile's x cotangent in registers, its dst
+  // cotangent in the warp's own rows of gdst
+  float dxj[2][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dxj[r][0] = dxj[r][1] = dxj[r][2] = 0.f;
+  float* deab = dea + (size_t)b * N * N;
+  for (int step = 0; step < N; ++step) {
+    if (warp < T) {
+      const int i = (step + warp * off) % N;
+      Geo e;
+      edge_geo(e, s, eab, i, n0, N, lane);
+      float ds1[2][V], mp[2][V], ds2[2][V], att[2];
+      edge_front<F, true>(s, e, i, c, lane, ds1, mp, ds2, att);
+      // cz = R(m_pre * att) W_c1 + b_c1, its sigmoid kept as silu'(cz)
+      float cz[2][V];
+      {
+        float m[2][V];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int v = 0; v < V; ++v) m[r][v] = mp[r][v] * att[r];
+        uint32_t a[KS][4];
+        to_frag<F>(m, a);
+#pragma unroll
+        for (int v = 0; v < V; ++v) cz[0][v] = cz[1][v] = s.bc1[col_of(v, t)];
+        mm<F, F>(cz, a, s.c1f, lane);
+      }
+      float cm[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float z = cz[r][v];
+          const float sg = sigm_fast(z);
+          cm[r] += z * sg * s.wc2[col_of(v, t)];
+          cz[r][v] = sg * (1.f + z * (1.f - sg));  // silu'(cz)
+        }
+      const float gxi0 = s.gx[3 * i], gxi1 = s.gx[3 * i + 1], gxi2 = s.gx[3 * i + 2];
+      float nrm[2], wij[2], gden[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float cmr = quad_sum(cm[r]);
+        nrm[r] = sqrtf(e.rad[r] + 1e-8f);
+        const float den = nrm[r] + 1.f;
+        const float th = c.tanh ? tanhf(cmr) : 0.f;
+        wij[r] = (c.tanh ? th * c.coords_range : cmr) / den;
+        // x_out_i = x_i + sum_j w_ij (x_i - x_j); masked before any derivative
+        const float g_w = (gxi0 * e.d[r][0] + gxi1 * e.d[r][1] + gxi2 * e.d[r][2]) * e.vm[r];
+        gden[r] = -g_w * wij[r] / den;
+        const float g_cm = (g_w / den) * (c.tanh ? c.coords_range * (1.f - th * th) : 1.f);
+#pragma unroll
+        for (int v = 0; v < V; ++v) cz[r][v] *= g_cm * s.wc2[col_of(v, t)];  // g_cz
+      }
+      // g_m = g_agg_i + g_cz W_c1^T, masked; then the attention's cotangent
+      float gm[2][V];
+      {
+        uint32_t hi[KS][4], lo[KS][4];
+        to_frag_split<F>(cz, hi, lo);
+#pragma unroll
+        for (int v = 0; v < V; ++v) gm[0][v] = gm[1][v] = s.gagg[i * F + col_of(v, t)];
+        mm<F, F>(gm, hi, s.c1b, lane);
+        mm<F, F>(gm, lo, s.c1b, lane);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float ga = 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          gm[r][v] *= e.vm[r];
+          ga += gm[r][v] * mp[r][v];
+        }
+        const float g_l = c.attention ? quad_sum(ga) * att[r] * (1.f - att[r]) : 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          gm[r][v] = (gm[r][v] * att[r] + g_l * s.watt[col_of(v, t)]) * ds2[r][v];  // g_z2
+      }
+      // g_z1 = (g_z2 W_e2^T) * silu'(z1)
+      float gz[2][V];
+      {
+        uint32_t hi[KS][4], lo[KS][4];
+        to_frag_split<F>(gm, hi, lo);
+#pragma unroll
+        for (int v = 0; v < V; ++v) gz[0][v] = gz[1][v] = 0.f;
+        mm<F, F>(gz, hi, s.e2b, lane);
+        mm<F, F>(gz, lo, s.e2b, lane);
+      }
+      float p[V];
+      float grad[2], gea[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        grad[r] = gea[r] = 0.f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          gz[r][v] *= ds1[r][v];
+          grad[r] += gz[r][v] * s.wr[col_of(v, t)];
+          gea[r] += gz[r][v] * s.we[col_of(v, t)];
+        }
+        grad[r] = quad_sum(grad[r]);
+        gea[r] = quad_sum(gea[r]);
+        if (e.j[r] < N) {
+#pragma unroll
+          for (int v = 0; v < V; v += 2) {
+            float2* gd = reinterpret_cast<float2*>(s.gdst + e.j[r] * FS + col_of(v, t));
+            const float2 o2 = *gd;
+            *gd = make_float2(o2.x + gz[r][v], o2.y + gz[r][v + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) p[v] = gz[0][v] + gz[1][v];
+      int vi;
+      const float tot = col_sum<V>(p, lane, vi);
+      if (V == 8 || !(lane & 4)) s.agg[i * F + col_of(vi, t)] += tot;
+      float dr[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (t == 0 && e.j[r] < N) deab[i * N + e.j[r]] = gea[r];  // 0 on the diagonal
+        const float gr = grad[r] + gden[r] / (2.f * nrm[r]);
+        const float gd0 = 2.f * gr * e.d[r][0] + wij[r] * gxi0 * e.vm[r];
+        const float gd1 = 2.f * gr * e.d[r][1] + wij[r] * gxi1 * e.vm[r];
+        const float gd2 = 2.f * gr * e.d[r][2] + wij[r] * gxi2 * e.vm[r];
+        dxj[r][0] -= gd0;
+        dxj[r][1] -= gd1;
+        dxj[r][2] -= gd2;
+        dr[0] += gd0;
+        dr[1] += gd1;
+        dr[2] += gd2;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        dr[k] += __shfl_xor_sync(0xffffffffu, dr[k], 4);
+        dr[k] += __shfl_xor_sync(0xffffffffu, dr[k], 8);
+        dr[k] += __shfl_xor_sync(0xffffffffu, dr[k], 16);
+      }
+      if (lane == 0) {
+        s.dxr[3 * i] += dr[0];
+        s.dxr[3 * i + 1] += dr[1];
+        s.dxr[3 * i + 2] += dr[2];
+      }
+    }
+    __syncthreads();
+  }
+
+  // dx of the senders
+  if (warp < T) {
+    float* dxb = dx + (size_t)b * N * 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = n0 + (lane >> 2) + 8 * r;
+      if (t == 0 && j < N)
+        for (int k = 0; k < 3; ++k) dxb[3 * j + k] = s.gx[3 * j + k] + s.dxr[3 * j + k] + dxj[r][k];
+    }
+  }
+  __syncthreads();
+
+  // dh += [g_src | g_dst] [W_src^T ; W_dst^T]
+  if (warp < T) {
+    float gv[2][V], dv[2][V], out[2][V];
+    load_tile<F>(gv, s.agg, F, n0, N, lane);
+    load_tile<F>(dv, s.gdst, FS, n0, N, lane);
+    load_tile<F>(out, dhb, F, n0, N, lane);
+    uint32_t hi[2 * KS][4], lo[2 * KS][4];
+    to_frag_split<F>(gv, hi, lo);
+    to_frag_split<F>(dv, hi + KS, lo + KS);
+    mm<2 * F, F>(out, hi, wtc + q.sdb, lane);
+    mm<2 * F, F>(out, lo, wtc + q.sdb, lane);
+    store_tile<F, F>(out, 0, dhb, F, n0, N, lane);
+  }
+}
+
+template <int F>
+int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* gh,
+                  const float* gx, const float* wts, const __nv_bfloat16* wtc, float* dh,
+                  float* dx, float* dea, int B, const Cfg& c, cudaStream_t s) {
+  if (c.N < 1 || c.N > kTcMaxN) return (int)cudaErrorInvalidValue;
+  const size_t bytes = tc_smem_floats<F>(c.N) * sizeof(float);
+  const int err = prepare(egcl_bwd_tc_kernel<F>, bytes);
+  if (err) return err;
+  egcl_bwd_tc_kernel<F><<<B, kTcThreads, bytes, s>>>(h, x, ea, gh, gx, wts, wtc, dh, dx, dea, c);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Length in bf16 elements of the tensor-core kernel's weight buffer.
+extern "C" int pita_egcl_tc_weights_len(int F) { return tcoff(F).total; }
+
+// Largest N the tensor-core kernel takes (one 16-sender tile per warp).
+extern "C" int pita_egcl_tc_max_n() { return kTcMaxN; }
+
+// The VJP of pita_egcl_forward in bf16 compute, on tensor cores: the
+// arguments of pita_egcl_backward (csrc/egnn_layer.cu) plus wtc, the bf16
+// matrices of pack_weights_tc (16-byte aligned); wts is the f32 buffer of
+// pack_weights(w, bf16), of which the vectors are read.
+extern "C" int pita_egcl_backward_tc(const float* h, const float* x, const float* ea,
+                                     const float* gh, const float* gx, const float* wts,
+                                     const void* wtc, float* dh, float* dx, float* dea, int B,
+                                     int N, int F, int attention, int tanh, float coords_range,
+                                     void* stream) {
+  if (B <= 0) return 0;
+  const Cfg c{N, 1, attention, tanh, coords_range};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wtc);
+  switch (F) {
+    case 16: return launch_bwd_tc<16>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
+    case 32: return launch_bwd_tc<32>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from pita_torch.io.flax_params import W_FIELDS
-from pita_torch.ops.egnn_layer import EGCLFunction, pack_weights
+from pita_torch.ops.egnn_layer import EGCLFunction, pack_weights, pack_weights_tc
 
 
 def _shapes(F):
@@ -44,14 +44,15 @@ class EGCL(nn.Module):
     def weights(self) -> dict:
         return {f: getattr(self, f) for f in W_FIELDS}
 
-    def packed(self, device) -> torch.Tensor:
-        """The kernels' packed weight buffer on ``device``, rebuilt when a
-        weight changes."""
+    def packed(self, device, tc: bool = False) -> torch.Tensor:
+        """The kernels' packed weight buffer on ``device`` (with ``tc`` the
+        bf16 one of the tensor-core VJP), rebuilt when a weight changes."""
         stamp = tuple((p.data_ptr(), p._version) for p in self.weights().values())
-        hit = self._packed.get(device)
+        hit = self._packed.get((device, tc))
         if hit is None or hit[0] != stamp:
-            buf = pack_weights(self.weights(), self.cfg["cd"]).to(device)
-            hit = self._packed[device] = (stamp, buf)
+            w = self.weights()
+            buf = (pack_weights_tc(w) if tc else pack_weights(w, self.cfg["cd"])).to(device)
+            hit = self._packed[(device, tc)] = (stamp, buf)
         return hit[1]
 
     def forward(self, h, x, edge_attr):

@@ -14,7 +14,10 @@ compute dtype, f32 accumulation, elementwise math in f32. In the VJP the
 rounding counts as the identity (straight-through), so cotangents stay f32.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it runs
-the plain version.
+the plain version. K3 has two kernels, chosen by the compute dtype: bf16 runs
+the tensor-core kernel of ``csrc/egnn_layer_tc.cu`` (``egnn_layer_backward_tc``),
+f32 the scalar ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``, which stays the
+kernel of record for f32 (tensor cores would change f32 results).
 """
 
 import ctypes
@@ -150,6 +153,16 @@ def pack_weights(w, cd=torch.float32) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
+def pack_weights_tc(w) -> torch.Tensor:
+    """The bf16 matrices of the tensor-core VJP in the layout of
+    ``csrc/egnn_layer_tc.cu:tcoff``: for each product Y = A M, the transpose
+    of M row by row, each row padded by 8 elements, all rounded to bf16."""
+    e2, c1, ws, wd, n1, n2 = (w[f].detach().float().to(torch.bfloat16)
+                              for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
+    mats = (e2.T, c1.T, e2, c1, torch.cat([ws.T, wd.T]), n1.T, n2, n1, torch.cat([ws, wd], 1))
+    return torch.cat([torch.nn.functional.pad(m, (0, 8)).reshape(-1) for m in mats]).contiguous()
+
+
 @functools.cache
 def _lib():
     lib = _build.load("egnn_layer")
@@ -165,6 +178,20 @@ def _lib():
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_backward.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_tc():
+    lib = _build.load("egnn_layer_tc")
+    lib.pita_egcl_tc_weights_len.argtypes = [ctypes.c_int]
+    lib.pita_egcl_tc_weights_len.restype = ctypes.c_int
+    lib.pita_egcl_tc_max_n.argtypes = []
+    lib.pita_egcl_tc_max_n.restype = ctypes.c_int
+    lib.pita_egcl_backward_tc.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_backward_tc.restype = ctypes.c_int
     return lib
 
 
@@ -189,13 +216,15 @@ def _check_inputs(h, x, edge_attr, *cots):
 
 
 def _kernel_args(h, packed, cfg, backward):
+    """The scalar arguments of a launch; ``backward`` None skips the scalar
+    kernels' shared-memory check."""
     B, N, F = h.shape
     lib = _lib()
     if packed.device != h.device or packed.dtype != torch.float32 or not packed.is_contiguous():
         raise ValueError("packed weights must be a contiguous f32 tensor on the inputs' device")
     if packed.numel() != lib.pita_egcl_weights_len(F) or packed.data_ptr() % 16:
         raise ValueError(f"packed weights do not match hidden width {F} (or are misaligned)")
-    smem = lib.pita_egcl_smem_bytes(N, F, int(backward))
+    smem = 1 if backward is None else lib.pita_egcl_smem_bytes(N, F, int(backward))
     if smem == 0 or smem > 232448:
         raise ValueError(f"EGCL kernel does not support F={F}, N={N} "
                          f"(needs F in (16, 32) and {smem} <= 232448 bytes of shared memory)")
@@ -232,9 +261,17 @@ def egnn_layer_forward(h, x, edge_attr, w, packed=None, **cfg):
     return h_out, x_out
 
 
-def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, **cfg):
+def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
     """VJP of one EGCL layer with respect to (h, x, edge_attr) (K3);
-    returns (dh, dx, dea)."""
+    returns (dh, dx, dea).
+
+    On CUDA the compute dtype picks the kernel: bf16 runs the tensor-core
+    kernel (``egnn_layer_backward_tc``, ``packed_tc`` from ``pack_weights_tc``),
+    f32 the scalar kernel, whose launches this function counts.
+    """
+    if cfg.get("cd", torch.float32) == torch.bfloat16:
+        return egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=packed,
+                                      packed_tc=packed_tc, **cfg)
     _check_inputs(h, x, edge_attr, gh, gx)
     if h.device.type == "cpu":
         return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
@@ -255,16 +292,56 @@ def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, **cfg):
     return dh, dx, dea
 
 
+def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
+    """K3 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
+    (dh, dx, dea). Takes F in (16, 32) and N up to 64; raises on anything
+    else, and on a compute dtype other than bf16."""
+    _check_inputs(h, x, edge_attr, gh, gx)
+    if cfg.get("cd", torch.float32) != torch.bfloat16:
+        raise ValueError("the tensor-core EGCL VJP computes in bf16 only")
+    if h.device.type == "cpu":
+        return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
+    B, N, F = h.shape
+    lib = _lib_tc()
+    if F not in (16, 32) or N > lib.pita_egcl_tc_max_n():
+        raise ValueError(f"the tensor-core EGCL VJP takes F in (16, 32) and N <= "
+                         f"{lib.pita_egcl_tc_max_n()}; got F={F}, N={N}")
+    if packed is None:
+        packed = pack_weights(w, torch.bfloat16).to(h.device)
+    if packed_tc is None:
+        packed_tc = pack_weights_tc(w).to(h.device)
+    args = _kernel_args(h, packed, cfg, backward=None)
+    if (packed_tc.device != h.device or packed_tc.dtype != torch.bfloat16
+            or not packed_tc.is_contiguous() or packed_tc.data_ptr() % 16
+            or packed_tc.numel() != lib.pita_egcl_tc_weights_len(F)):
+        raise ValueError(f"packed_tc must be pack_weights_tc(w) for hidden width {F}, "
+                         "contiguous and 16-byte aligned on the inputs' device")
+    h, x, edge_attr, gh, gx = (t.contiguous() for t in (h, x, edge_attr, gh, gx))
+    dh, dx, dea = torch.empty_like(h), torch.empty_like(x), torch.empty_like(edge_attr)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.pita_egcl_backward_tc(
+            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), gh.data_ptr(),
+            gx.data_ptr(), packed.data_ptr(), packed_tc.data_ptr(), dh.data_ptr(),
+            dx.data_ptr(), dea.data_ptr(), B, N, F, *args[4:], stream,
+        )
+    _build.check(err, "egnn_layer_backward_tc")
+    egnn_layer_backward_tc.launches += 1
+    return dh, dx, dea
+
+
 egnn_layer_forward.launches = 0
 egnn_layer_backward.launches = 0
+egnn_layer_backward_tc.launches = 0
 
 
 class EGCLFunction(torch.autograd.Function):
     """One EGCL layer, differentiable in (h, x, edge_attr) only.
 
-    The forward runs K2 and saves only its inputs; the backward runs K3,
-    which rebuilds the edge tensors on chip. Weights get no gradient
-    (inference only): a weight that requires grad raises.
+    The forward runs K2 and saves only its inputs; the backward runs K3
+    (its tensor-core kernel in bf16), which rebuilds the edge tensors on
+    chip. Weights get no gradient (inference only): a weight that requires
+    grad raises.
     """
 
     @staticmethod
@@ -281,8 +358,10 @@ class EGCLFunction(torch.autograd.Function):
     def backward(ctx, gh, gx):
         h, x, edge_attr = ctx.saved_tensors
         layer = ctx.layer
+        tc = layer.cfg["cd"] == torch.bfloat16
         dh, dx, dea = egnn_layer_backward(
             h, x, edge_attr, gh.contiguous(), gx.contiguous(), layer.weights(),
-            packed=layer.packed(h.device), **layer.cfg,
+            packed=layer.packed(h.device),
+            packed_tc=layer.packed(h.device, tc=True) if tc else None, **layer.cfg,
         )
         return dh, dx, dea, None

@@ -223,3 +223,56 @@ def test_pack_weights_layout():
             torch.testing.assert_close(packed[off:off + sizes[f]], want, rtol=0, atol=0)
             off += -(-sizes[f] // 4) * 4
         assert packed.numel() == off == 7 * F * F + 7 * F + 2 * F + 4
+
+
+@pytest.mark.parametrize("hidden", [16, 32])
+def test_pack_weights_tc_layout(hidden):
+    """The bf16 buffer of csrc/egnn_layer_tc.cu (tcoff): for each product
+    Y = A M the transpose of M, rows padded by 8 zeros, equal to the weights
+    as the matmuls see them (rounded_weights in bf16)."""
+    _, tw = _one_layer(seed=3, hidden=hidden)
+    F = hidden
+    rw = el.rounded_weights(tw, torch.bfloat16)
+    e2, c1, ws, wd, n1, n2 = (rw[f] for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
+    want = [e2.T, c1.T, e2, c1, torch.cat([ws.T, wd.T]), n1.T, n2, n1,
+            torch.cat([ws, wd], 1)]
+    buf = el.pack_weights_tc(tw)
+    assert buf.dtype == torch.bfloat16 and buf.is_contiguous()
+    off = 0
+    for m in want:
+        rows, cols = m.shape
+        block = buf[off:off + rows * (cols + 8)].reshape(rows, cols + 8).float()
+        torch.testing.assert_close(block[:, :cols], m, rtol=0, atol=0)
+        assert not block[:, cols:].any()
+        off += rows * (cols + 8)
+    # tcoff(F).total
+    assert buf.numel() == off == 9 * F * (F + 8) + 2 * F * (2 * F + 8)
+
+
+def test_egcl_backward_dispatches_by_compute_dtype():
+    """bf16 goes to the tensor-core wrapper, f32 to the scalar one; on the
+    CPU both run layer_vjp, and neither counts a launch. The tensor-core
+    wrapper refuses f32. The layer caches its bf16 buffer."""
+    mod, params = _jax_model(7, 16, 1, seed=8)
+    layer = _port_model(mod, params, cd=torch.bfloat16).layers[0]
+    h, x, ea = (torch.as_tensor(a) for a in _layer_inputs(3, 7, 16, 9))
+    gh, gx = torch.randn(3, 7, 16), torch.randn(3, 7, 3)
+    w = layer.weights()
+    before = (el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches)
+    for cd in (torch.bfloat16, torch.float32):
+        cfg = dict(CFG, cd=cd)
+        got = el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg)
+        ref = el.layer_vjp(h, x, ea, gh, gx, w, **cfg)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cfg = dict(CFG, cd=torch.bfloat16)
+    got = el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, **cfg)
+    for a, b in zip(got, el.layer_vjp(h, x, ea, gh, gx, w, **cfg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches) == before
+    with pytest.raises(ValueError, match="bf16 only"):
+        el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, **dict(CFG, cd=torch.float32))
+    buf = layer.packed(torch.device("cpu"), tc=True)
+    assert buf is layer.packed(torch.device("cpu"), tc=True)
+    torch.testing.assert_close(buf, el.pack_weights_tc(w), rtol=0, atol=0)
+    assert layer.packed(torch.device("cpu")).dtype == torch.float32

@@ -69,26 +69,34 @@ def _random_layer(F, device, seed):
     return {k: (torch.randn(s, generator=g) / s[0] ** 0.5).to(device) for k, s in shapes.items()}
 
 
-@pytest.mark.parametrize("F,N,cd,tol", [
-    (32, 55, torch.float32, 1e-4),
-    (32, 55, torch.bfloat16, 3e-2),
-    (16, 13, torch.float32, 1e-4),
-    (16, 40, torch.bfloat16, 3e-2),
+@pytest.mark.parametrize("F,N,cd,tol,B", [
+    (32, 55, torch.float32, 1e-4, 64),
+    (32, 55, torch.bfloat16, 3e-2, 64),
+    (16, 13, torch.float32, 1e-4, 64),
+    (16, 40, torch.bfloat16, 3e-2, 64),
+    # the tensor-core K3 only: its largest N (4 full tiles), one ragged tile
+    # at F=32, and the Hutchinson launch's 4096 chains
+    (32, 64, torch.bfloat16, 3e-2, 64),
+    (32, 13, torch.bfloat16, 3e-2, 64),
+    (32, 55, torch.bfloat16, 3e-2, 4096),
 ])
-def test_egcl_kernels_match_plain(cuda, F, N, cd, tol):
+def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
     w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
     g = torch.Generator(device=cuda).manual_seed(N)
-    x = torch.randn(64, N, 3, generator=g, device=cuda) * 0.5
-    h = torch.randn(64, N, F, generator=g, device=cuda)
+    x = torch.randn(B, N, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(B, N, F, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
+    # bf16 runs the tensor-core K3, f32 the scalar one
+    tc = cd == torch.bfloat16
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
-        before = (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches)
+        counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches,
+                          el.egnn_layer_backward_tc.launches)
+        before = counts()
         got = (*el.egnn_layer_forward(h, x, ea, w, **cfg),
                *el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg))
-        assert (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches) == (
-            before[0] + 1, before[1] + 1)
+        assert counts() == (before[0] + 1, before[1] + (not tc), before[2] + tc)
         with torch.no_grad():
             ref = (*el.layer_step(h, x, ea, w, **cfg),
                    *el.layer_vjp(h, x, ea, gh, gx, w, **cfg))
@@ -96,6 +104,16 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol):
         # f32: sums reassociated; bf16: now and then a neighbouring bf16 rounding
         for a, b in zip(got, ref):
             assert (a - b).abs().max() <= tol * b.abs().max()
+        # dea is written for every edge, 0 on the diagonal
+        assert not got[4].diagonal(dim1=1, dim2=2).any()
+
+
+def test_egcl_tc_backward_refuses_large_n(cuda):
+    w = _random_layer(16, cuda, seed=1)
+    h, x = torch.zeros(2, 65, 16, device=cuda), torch.zeros(2, 65, 3, device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_backward_tc(h, x, torch.zeros(2, 65, 65, device=cuda), h, x, w,
+                                  cd=torch.bfloat16)
 
 
 @pytest.mark.parametrize("N,F,T,B,integer", [
