@@ -12,12 +12,15 @@ Phases, each printing lines, each failing the run on disagreement:
      spline and LJ13 without, 2048 configurations;
   3. K2 (EGCL forward) against layer_step and K3 (EGCL VJP) against autograd
      through layer_step: bench weights, each of the 3 layers, 2048 chains,
-     N=55, in f32 (the scalar K3) and bf16 (the tensor-core K3); the
-     tensor-core K3 also on first-step inputs (prior samples at t = 1) and at
-     the Hutchinson launch's 4096 chains; both K3s and K2 timed;
+     N=55, in f32 (the scalar K2 and K3) and bf16 (the tensor-core K2 and
+     K3); the tensor-core kernels also on first-step inputs (prior samples at
+     t = 1), at the Hutchinson launch's 4096 chains and at LJ13's N = 13;
+     every K2 and K3 timed, the scalar K2 also in bf16 beside the
+     tensor-core one;
   4. the first main path, timed: bench_lj55.npz through the port's decoder,
      the hutch_ess_k10 configuration of bench.py at 2048 chains x 100 steps
-     after one warm-up; the K2 and tensor-core K3 launch counters must move;
+     after one warm-up; it must launch the tensor-core K2 (630 times) and K3,
+     and the scalar K2 and K3 never;
   5. its quality run: 512 chains x 400 steps, final resample, 30 adaptive
      MALA steps; energy W2 against the ground-truth samples and against the
      exact-divergence population of bench_lj55_exact_energies.npy; the K1
@@ -38,14 +41,15 @@ Phases, each printing lines, each failing the run on disagreement:
      draws: the K5 route and the K4 route each against the materialized-G
      route; samples identical, final log-weights within tolerance, with the
      bf16 and with an f32 backbone (whose runs must launch the scalar f32
-     K3); then the trace by the three routes on a
+     K2 and K3, and the bf16 runs the scalar K2 never); then the trace by the
+     three routes on a
      full-width backbone with random weights, where the G-operator term is
      not as small as on the trained ones;
   9. the second main path, timed: quadrature_k10 of bench.py (exact
      divergence every 10th step, resampling every step, chain chunks of 256)
      at 2048 chains x 100 steps once per route, each after a 10-step warm-up,
-     the K2 and K4/K5 counters must move; then exact (every step) at 256
-     chains x 100 steps per kernel route;
+     the tensor-core K2 and K4/K5 counters must move; then exact (every
+     step) at 256 chains x 100 steps per kernel route;
  10. the exact-divergence quality run: quadrature_k10 on the faster kernel
      route, 512 chains x 400 steps, final resample, 30 MALA steps, both arms
      of the gate as in phase 5.
@@ -72,8 +76,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
-# special-function units (exponential, reciprocal): 16 results per clock per
-# SM, 132 SMs, at the H100 SXM's 1.98 GHz boost clock
+# special-function units (exponential, reciprocal, tanh): 16 results per
+# clock per SM, 132 SMs, at the H100 SXM's 1.98 GHz boost clock
 PEAK_SFU = 132 * 16 * 1.98e9
 
 # max |kernel − plain| / max |plain| allowed, per output tensor
@@ -116,7 +120,7 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def bound_ms(n_bytes, n_ops, peak_ops, sfu_ops=0):
     """The least time (ms) and what sets it: bytes over the memory rate, or
-    operations over their peak, the SFU's exponentials and reciprocals over
+    operations over their peak, the SFU operations (sigmoids, tanhs) over
     theirs."""
     t_b, t_o = n_bytes / PEAK_BYTES * 1e3, max(n_ops / peak_ops, sfu_ops / PEAK_SFU) * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
@@ -125,12 +129,14 @@ def bound_ms(n_bytes, n_ops, peak_ops, sfu_ops=0):
 def egcl_bound(label, n_bytes, n_ops, peak_ops, n_edges, F):
     """bound_ms of an EGCL kernel, its three terms printed: the function
     needs sigma(z1), sigma(z2), sigma(cz) (F each), the attention sigmoid and
-    a tanh per edge, each an exponential and a reciprocal on the SFU."""
-    sfu = 2 * (3 * F + 2) * n_edges
+    a tanh per edge, each at least one SFU operation (tanh.approx.f32 gives
+    a logistic in one; an exponential and a reciprocal take two)."""
+    sfu = (3 * F + 2) * n_edges
     bnd = bound_ms(n_bytes, n_ops, peak_ops, sfu)
     print(f"[phase 3] bound of {label}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, products "
           f"{n_ops / peak_ops * 1e3:.4f} ms, SFU {sfu / PEAK_SFU * 1e3:.4f} ms "
-          f"({sfu:.3e} exponentials and reciprocals at 16/clk/SM, 1.98 GHz) -> {bnd[0]:.4f} ms")
+          f"({sfu:.3e} sigmoids and tanhs, one SFU operation each at 16/clk/SM, 1.98 GHz) "
+          f"-> {bnd[0]:.4f} ms")
     return bnd
 
 
@@ -197,11 +203,11 @@ def phase_egcl(wl, data):
             cfg = dict(layer.cfg, cd=cd)
             w = layer.weights()
             packed = el.pack_weights(w, cd).cuda()
-            # the tensor-core K3's bf16 matrices
+            # the tensor-core K2's and K3's bf16 matrices
             ptc = el.pack_weights_tc(w).cuda() if cd == torch.bfloat16 else None
             gh = torch.randn(h.shape, generator=gen, device="cuda")
             gx = torch.randn(x.shape, generator=gen, device="cuda")
-            ho_k, xo_k = el.egnn_layer_forward(h, x, ea, w, packed=packed, **cfg)
+            ho_k, xo_k = el.egnn_layer_forward(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
             with torch.no_grad():
                 ho_p, xo_p = el.layer_step(h, x, ea, w, **cfg)
             d_k = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=packed, packed_tc=ptc, **cfg)
@@ -227,17 +233,23 @@ def phase_egcl(wl, data):
 
 
 def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
-    """Layer 0 at the main path's shapes: times and bounds; for bf16 also the
-    tensor-core K3 against the plain VJP on first-step inputs and at the
-    Hutchinson launch's 4096 chains. Returns the JSON fields by kernel."""
+    """Layer 0 at the main path's shapes: times and bounds of K2 and K3. For
+    bf16 also the scalar K2 timed beside the tensor-core one, and the
+    tensor-core K2 and K3 against the plain versions on first-step inputs,
+    at the Hutchinson launch's 4096 chains and at LJ13's N = 13. Returns the
+    JSON fields by kernel."""
     import torch
 
     from pita_torch.nets.precondition import coeffs
 
     B, N, F = h.shape
+    fwd = lambda *a: el.egnn_layer_forward(*a, w, packed=packed, packed_tc=ptc, **cfg)
     bwd = lambda *a: el.egnn_layer_backward(*a, w, packed=packed, packed_tc=ptc, **cfg)
     ms_b = cuda_ms(lambda: bwd(h, x, ea, gh, gx), reps=10)
     pl_b = cuda_ms(lambda: el.layer_vjp(h, x, ea, gh, gx, w, **cfg), reps=3)
+    ms_f = cuda_ms(lambda: fwd(h, x, ea))
+    with torch.no_grad():
+        pl_f = cuda_ms(lambda: el.layer_step(h, x, ea, w, **cfg), reps=5)
     E = B * N * (N - 1)
     node_ops = B * N * 10 * F * F  # src, dst and the node MLP
     wbytes = 4 * packed.numel()
@@ -246,16 +258,20 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     # edge products: 2 F x F matmuls forward; the VJP rebuilds them and runs
     # their 2 transposes; bf16 inputs on tensor cores, f32 on the scalar units
     peak = PEAK_BF16 if cd_name == "bf16" else PEAK_F32
+    bf = egcl_bound(f"K2 {cd_name} B={B}", io_f, E * 4 * F * F + node_ops, peak, E, F)
     bb_ = egcl_bound(f"K3 {cd_name} B={B}", io_b, E * 8 * F * F + 2 * node_ops, peak, E, F)
     if cd_name == "f32":
-        print(f"[phase 3] f32 B={B} layer 0: scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
-        return {"bwd_f32": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1])}
-    ms_f = cuda_ms(lambda: el.egnn_layer_forward(h, x, ea, w, packed=packed, **cfg))
-    with torch.no_grad():
-        pl_f = cuda_ms(lambda: el.layer_step(h, x, ea, w, **cfg), reps=5)
-    bf = egcl_bound(f"K2 bf16 B={B}", io_f, E * 4 * F * F + node_ops, PEAK_BF16, E, F)
-    print(f"[phase 3] bf16 B={B} layer 0: K2 {ms_f:.4f} ms (plain {pl_f:.3f}); tensor-core K3 "
-          f"{ms_b:.4f} ms (plain {pl_b:.3f})")
+        print(f"[phase 3] f32 B={B} layer 0: scalar K2 {ms_f:.4f} ms (plain {pl_f:.3f}); "
+              f"scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
+        return {"fwd_f32": dict(ms=ms_f, plain_ms=pl_f, bound_ms=bf[0], bound_by=bf[1]),
+                "bwd_f32": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1])}
+    # the scalar K2 in bf16, past the dispatch for this timing only; in turns
+    # with the tensor-core K2 (scalar, tensor cores, tensor cores, scalar)
+    scalar = lambda *a: el._forward_scalar(*a, w, packed, **cfg)
+    turns = [cuda_ms(lambda: f(h, x, ea)) for f in (scalar, fwd, fwd, scalar)]
+    print(f"[phase 3] bf16 B={B} layer 0: tensor-core K2 {ms_f:.4f} ms, in turns with the "
+          f"scalar K2 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar; "
+          f"plain {pl_f:.3f}); tensor-core K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
     # the same layer on the inputs of the first EM step (prior samples at
     # t=1), where many activations are far from 0
     bb = wl.energy.backbone
@@ -265,38 +281,53 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     f1 = torch.stack([c_noise1, torch.ones_like(c_noise1)], -1)[:, None, :]
     hp = (f1.expand(B, N, 2) @ bb.w_emb + bb.b_emb).contiguous()
     eap = ((xp[:, :, None] - xp[:, None]) ** 2).sum(-1).contiguous()
-    ms_f1 = cuda_ms(lambda: el.egnn_layer_forward(hp, xp, eap, w, packed=packed, **cfg))
+    ms_f1 = cuda_ms(lambda: fwd(hp, xp, eap))
+    ms_fs1 = cuda_ms(lambda: scalar(hp, xp, eap))
     ms_b1 = cuda_ms(lambda: bwd(hp, xp, eap, gh, gx), reps=10)
-    worst = 0.0
+    worst_f = worst_b = 0.0
+    counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches,
+                      el.egnn_layer_backward_tc.launches)
     for name, args in (("first-step inputs (t=1)", (hp, xp, eap, gh, gx)),
                        ("4096 chains (the Hutchinson launch: t=0.5 and t=1 inputs)",
                         (torch.cat([h, hp]), torch.cat([x, xp]), torch.cat([ea, eap]),
                          torch.randn(2 * B, N, F, generator=gen, device="cuda"),
-                         torch.randn(2 * B, N, 3, generator=gen, device="cuda")))):
-        before = el.egnn_layer_backward_tc.launches
-        got = bwd(*args)
-        if el.egnn_layer_backward_tc.launches != before + 1:
-            fail("the bf16 VJP did not launch the tensor-core K3")
-        # the plain VJP in chunks of 1024 chains: its edge tensors are 0.4 GB each
-        ref = [torch.cat(parts) for parts in zip(*(
-            el.layer_vjp(*(t[c0:c0 + 1024] for t in args), w, **cfg)
-            for c0 in range(0, args[0].shape[0], 1024)))]
+                         torch.randn(2 * B, N, 3, generator=gen, device="cuda"))),
+                       ("LJ13's N=13 (the first 13 particles, t=0.5)",
+                        tuple(t.contiguous() for t in (h[:, :13], x[:, :13], ea[:, :13, :13],
+                                                       gh[:, :13], gx[:, :13])))):
+        before = counts()
+        got_f, got_b = fwd(*args[:3]), bwd(*args)
+        if counts() != (before[0], before[1] + 1, before[2] + 1):
+            fail("the bf16 layer did not launch the tensor-core K2 and K3 (and only them)")
+        # the plain versions in chunks of 1024 chains: their edge tensors are 0.4 GB each
+        chunks = range(0, args[0].shape[0], 1024)
+        with torch.no_grad():
+            ref_f = [torch.cat(p) for p in zip(*(
+                el.layer_step(*(t[c0:c0 + 1024] for t in args[:3]), w, **cfg) for c0 in chunks))]
+        ref_b = [torch.cat(p) for p in zip(*(
+            el.layer_vjp(*(t[c0:c0 + 1024] for t in args), w, **cfg) for c0 in chunks))]
         torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        worst = max([worst] + [e[1] for e in errs])
-        print(f"[phase 3] tensor-core K3 bf16 layer 0, {name}: rel err "
-              + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(("dh", "dx", "dea"), errs))
+        errs_f = [rel_err(a, b) for a, b in zip(got_f, ref_f)]
+        errs_b = [rel_err(a, b) for a, b in zip(got_b, ref_b)]
+        worst_f = max([worst_f] + [e[1] for e in errs_f])
+        worst_b = max([worst_b] + [e[1] for e in errs_b])
+        print(f"[phase 3] tensor-core K2/K3 bf16 layer 0, {name}: rel err "
+              + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(
+                  ("h_out", "x_out", "dh", "dx", "dea"), errs_f + errs_b))
               + f" (tol {TOL_BF16})")
-        if not max(e[0] for e in errs) <= TOL_BF16:
-            fail(f"the tensor-core K3 disagrees with the plain VJP on {name}")
-        del got, ref
-    h4, x4, ea4, gh4, gx4 = args
+        if not max(e[0] for e in errs_f + errs_b) <= TOL_BF16:
+            fail(f"the tensor-core K2/K3 disagree with the plain versions on {name}")
+        if args[0].shape[0] == 2 * B:
+            h4, x4, ea4, gh4, gx4 = args
+        del got_f, got_b, ref_f, ref_b
+    ms_f4 = cuda_ms(lambda: fwd(h4, x4, ea4))
     ms_b4 = cuda_ms(lambda: bwd(h4, x4, ea4, gh4, gx4), reps=10)
-    print(f"[phase 3] bf16 layer 0: K2 {ms_f1:.4f} ms, tensor-core K3 {ms_b1:.4f} ms on first-step "
-          f"inputs (B={B}); tensor-core K3 {ms_b4:.4f} ms at B={2 * B}")
+    print(f"[phase 3] bf16 layer 0 on first-step inputs (B={B}): tensor-core K2 {ms_f1:.4f} ms, "
+          f"scalar K2 {ms_fs1:.4f} ms, tensor-core K3 {ms_b1:.4f} ms; at B={2 * B}: "
+          f"tensor-core K2 {ms_f4:.4f} ms, tensor-core K3 {ms_b4:.4f} ms")
     return {"fwd": dict(ms=ms_f, plain_ms=pl_f, bound_ms=bf[0], bound_by=bf[1]),
             "bwd": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1]),
-            "bwd_extra_err": worst}
+            "fwd_extra_err": worst_f, "bwd_extra_err": worst_b}
 
 
 def score_inputs(wl, x_flat, t_val):
@@ -590,7 +621,7 @@ def phase_wiring(wl, wl32, data, kernels):
     x1 = x1 + math.sqrt(wl.noise.h(t0)) * torch.randn(x1.shape, generator=gen, device="cuda")
     base = exact_cfg(num_integration_steps=n, end_resampling_step=n, time_range=t0,
                      ess_resampling_threshold=0.0, divergence_chunk_size=64)
-    scalar_k3 = 0  # launches of the scalar (f32) K3: the f32 backbone's runs
+    scalar = {"bf16": [0, 0], "f32": [0, 0]}  # launches of the scalar K2 and K3 by backbone
     for name, load in (("bf16", wl), ("f32", wl32)):
         res = {}
         for route, kw in ROUTES.items():
@@ -600,8 +631,8 @@ def phase_wiring(wl, wl32, data, kernels):
                                        device="cuda")
             torch.cuda.synchronize()
             counts = {f.__name__: f.launches for f in kernels}
-            if name == "f32":
-                scalar_k3 += counts["egnn_layer_backward"]
+            scalar[name][0] += counts["egnn_layer_forward"]
+            scalar[name][1] += counts["egnn_layer_backward"]
             want = {"g_kernel": "g_operator_contract", "tangent_kernel": "egnn_layer_tangent"}
             if route in want and counts[want[route]] == 0:
                 fail(f"the {route} route did not launch {want[route]}")
@@ -625,10 +656,13 @@ def phase_wiring(wl, wl32, data, kernels):
             if not rel <= tol:
                 fail(f"the {route} route's log-weights disagree with the materialized "
                      f"route's ({name})")
-    print(f"[phase 8] the f32 backbone's runs launched the scalar K3 {scalar_k3} times")
-    if scalar_k3 == 0:
-        fail("the f32 wiring runs did not launch the scalar K3")
-    return scalar_k3
+    print(f"[phase 8] launches of the scalar K2, K3: f32 backbone's runs {scalar['f32']}, "
+          f"bf16 backbone's runs {scalar['bf16']}")
+    if 0 in scalar["f32"]:
+        fail("the f32 wiring runs did not launch the scalar K2 and K3")
+    if scalar["bf16"] != [0, 0]:
+        fail("the bf16 wiring runs launched a scalar EGCL kernel")
+    return scalar["f32"]
 
 
 def timed_exact_run(wl, x1, cfg, label, kernels, profile):
@@ -656,8 +690,8 @@ def timed_exact_run(wl, x1, cfg, label, kernels, profile):
           f"{rate:.1f} chain*steps/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {counts}; "
           f"unique ancestors after the last step {int(res.num_unique[-1])}")
-    if counts["egnn_layer_forward"] == 0:
-        fail(f"{label} did not launch the EGCL forward kernel")
+    if counts["egnn_layer_forward_tc"] == 0 or counts["egnn_layer_forward"] != 0:
+        fail(f"{label} did not run the tensor-core EGCL forward kernel alone")
     if profile:
         profile_main_path(wl, x1, cfg, label)
     return rate, counts
@@ -776,7 +810,7 @@ def main():
     from pita_torch.io.bench_asset import load_lj55_bench
     from pita_torch.ops import _build
     from pita_torch.ops.egnn_layer import (egnn_layer_backward, egnn_layer_backward_tc,
-                                           egnn_layer_forward)
+                                           egnn_layer_forward, egnn_layer_forward_tc)
     from pita_torch.ops.egnn_tangent import egnn_layer_tangent
     from pita_torch.ops.g_op import g_operator_contract
     from pita_torch.ops.lj import lj_log_prob_and_force
@@ -787,7 +821,7 @@ def main():
     print(f"[phase 1] built {', '.join(_build.SOURCES)} in {secs:.1f} s")
     for name in _build.SOURCES:
         for ln in _build.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "Function properties" in ln:
                 print(f"[phase 1] {name}: {ln.strip()}")
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
@@ -804,8 +838,9 @@ def main():
         return 0
 
     # phase 4: the first main path, timed
-    kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_backward,
-               egnn_layer_backward_tc, egnn_layer_tangent, g_operator_contract)
+    kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
+               egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
+               g_operator_contract)
     gen = torch.Generator("cuda").manual_seed(0)
     n_chains, n_steps = 2048, 100
     x1 = torch.randn(n_chains, 165, generator=gen, device="cuda") * wl.prior_scale
@@ -827,8 +862,16 @@ def main():
     print(f"[phase 4] hutch_ess_k10 {n_chains} chains x {n_steps} steps: {wall:.3f} s, "
           f"{rate:.1f} chain*steps/s; launches {main_counts}; resampling fired "
           f"{n_res} times")
-    if main_counts["egnn_layer_forward"] == 0 or main_counts["egnn_layer_backward_tc"] == 0:
-        fail("the main path did not launch the EGCL kernels (K2 and the tensor-core K3)")
+    # 3 layers: the score and the energy net every step, the Hutchinson VJP's
+    # forward every 10th (its one launch at twice the chains)
+    want_k2 = 3 * (2 * n_steps + n_steps // 10)
+    print(f"[phase 4] tensor-core K2 launched {main_counts['egnn_layer_forward_tc']} times "
+          f"({want_k2} expected), the scalar K2 {main_counts['egnn_layer_forward']}, the scalar "
+          f"K3 {main_counts['egnn_layer_backward']}")
+    if main_counts["egnn_layer_forward_tc"] != want_k2 or main_counts["egnn_layer_backward_tc"] == 0:
+        fail("the main path did not launch the tensor-core EGCL kernels (K2 and K3)")
+    if main_counts["egnn_layer_forward"] or main_counts["egnn_layer_backward"]:
+        fail("the main path launched a scalar EGCL kernel")
     if profile:  # where the device time of the main path goes
         profile_main_path(wl, x1, cfg, "hutch_ess_k10")
 
@@ -847,7 +890,7 @@ def main():
             fail(f"energy W2 against ground truth {w2_gt:.3f} > 2 sigma_GT {2 * spread:.3f}")
 
     # phase 8: every route of the exact divergence gives the same weights
-    k3_f32_launches = phase_wiring(wl, wl32, data, kernels)
+    k2_f32_launches, k3_f32_launches = phase_wiring(wl, wl32, data, kernels)
     phase_routes_random_weights(wl, data)
 
     # phase 9: the second main path, timed, once per route
@@ -888,10 +931,14 @@ def main():
         dict(name="lj_log_prob_and_force", route="cuda", source=src + "lj.cu",
              replaces="pita_tpu/ops/pallas/lj.py:108",
              launches=q_counts["lj_log_prob_and_force"], library_ms=None, **k1),
-        dict(name="egcl_forward", route="cuda", source=src + "egnn_layer.cu",
+        dict(name="egcl_forward_tc", route="cuda", source=src + "egnn_layer_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:318",
-             launches=main_counts["egnn_layer_forward"],
-             max_abs_err=eg["bf16"][0], library_ms=None, **eg["fwd"]),
+             launches=main_counts["egnn_layer_forward_tc"],
+             max_abs_err=max(eg["bf16"][0], eg["fwd_extra_err"]), library_ms=None, **eg["fwd"]),
+        # the f32 K2: launches from the f32 backbone's runs of phase 8
+        dict(name="egcl_forward", route="cuda", source=src + "egnn_layer.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=k2_f32_launches,
+             max_abs_err=eg["f32"][0], library_ms=None, **eg["fwd_f32"]),
         dict(name="egcl_backward_tc", route="cuda", source=src + "egnn_layer_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:342",
              launches=main_counts["egnn_layer_backward_tc"],

@@ -1,7 +1,9 @@
-// K3 on tensor cores: the VJP of one EGCL layer with respect to (h, x,
-// edge_attr) in bf16 compute, sm_90a.
+// The EGCL layer on tensor cores in bf16 compute, sm_90a: K3, the VJP with
+// respect to (h, x, edge_attr) (this note), and K2, the forward (its note is
+// at egcl_fwd_tc_kernel below). Both share the mma helpers and the bf16
+// weight buffer of this file.
 //
-// Replaces the Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:169
+// K3 replaces the Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:169
 // _layer_bwd_kernel (called through _layer_bwd_call, egnn_fwd.py:335) for
 // compute dtype bf16; the scalar egcl_bwd_kernel of egnn_layer.cu stays the
 // kernel for f32. The function is that of egnn_layer.cu's K3: matmul inputs
@@ -62,14 +64,14 @@ constexpr int kTcMinBlocks = 4;
 // fragment is one 32-bit load and a warp's loads hit distinct banks.
 // Mirrored by pita_torch/ops/egnn_layer.py:pack_weights_tc.
 struct TcOff {
-  int e2f, c1f, e2b, c1b, sd, n1f, n2b, n1b, sdb, total;
+  int e2f, c1f, e2b, c1b, sd, n1f, n2b, n1b, sdb, n2f, total;
 };
 
 __host__ __device__ inline TcOff tcoff(int F) {
   TcOff o;
   const int r1 = F + 8, r2 = 2 * F + 8;
   int p = 0;
-  o.e2f = p; p += F * r1;      // M = W_e2
+  o.e2f = p; p += F * r1;      // M = W_e2 (e2f and c1f adjoin: the edge matrices)
   o.c1f = p; p += F * r1;      // M = W_c1
   o.e2b = p; p += F * r1;      // M = W_e2^T
   o.c1b = p; p += F * r1;      // M = W_c1^T
@@ -78,6 +80,7 @@ __host__ __device__ inline TcOff tcoff(int F) {
   o.n2b = p; p += F * r1;      // M = W_n2^T
   o.n1b = p; p += 2 * F * r1;  // M = W_n1^T
   o.sdb = p; p += F * r2;      // M = [W_src^T ; W_dst^T]
+  o.n2f = p; p += F * r1;      // M = W_n2 (forward only)
   o.total = p;
   return o;
 }
@@ -654,6 +657,284 @@ int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ K2
+//
+// K2 on tensor cores: one EGCL layer forward in bf16 compute. Replaces the
+// Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:153 _layer_fwd_kernel
+// (called through _layer_fwd_call, egnn_fwd.py:311) for compute dtype bf16;
+// the scalar egcl_fwd_kernel of egnn_layer.cu stays the kernel for f32. The
+// function is that of the scalar K2: matmul inputs rounded to bf16 in value,
+// f32 accumulation, f32 elementwise math.
+//
+// What bounds it on the H100: each edge needs 3F+2 sigmoids (sigma(z1),
+// sigma(z2), sigma(cz), the attention gate, and the tanh), each at least one
+// operation on the SFUs (16 a clock per SM): 0.14 ms at 2048 chains, N = 55,
+// F = 32, against 0.03 ms for the two F x F edge products on bf16 tensor
+// cores and 0.02 ms for the bytes. The design keeps the SFU work to that one
+// operation a sigmoid and the rest of the work off the critical pipes:
+//  - One block per chain, one warp per tile of 16 receivers i (one m16 tile;
+//    N <= 64, so at most 4 warps); the warp walks over all senders j.
+//  - The edge chain z1 -> silu -> .W_e2 -> z2 -> silu -> gate -> .W_c1 -> cz
+//    runs as m16n8k16 bf16 mmas with f32 accumulators, each accumulator pair
+//    feeding the next product as its A fragment in registers (to_frag, mm).
+//    A lane holds 2 receivers x F/4 features of each F-vector.
+//  - Every sum of the forward runs over senders for a fixed receiver (agg_i,
+//    sum_j w_ij, sum_j w_ij x_j), so each stays in the lane's registers for
+//    the whole walk: after the prologue there is no __syncthreads, no sum in
+//    shared memory and no atomic, and the order is fixed (deterministic).
+//    The node MLP then takes agg_i from those registers as A fragments for
+//    the warp's own 16 nodes.
+//  - Each edge sigmoid is computed once, as sigm_tanh: one tanh.approx.f32
+//    (one SFU operation; exp and reciprocal, as sigm_fast, take two). Its
+//    error (~2^-12 absolute) is below the bf16 rounding of the products'
+//    inputs: chip_smoke.py phase 3 holds the kernel to layer_step at its
+//    bf16 tolerance. The node MLP's sigmoids (per node, not per edge) and
+//    the coordinate tanh stay exact (silu, tanhf). The attention logit and
+//    cm are quad sums reduce-scattered by row: lane t of a quad finishes row
+//    t & 1, so the gate is computed by two lanes a quad (not four) and
+//    exchanged, and the coordinate weight (tanh, 1 / (|x_i - x_j| + 1)) by
+//    the lanes that keep that row's sums.
+//  - The src/dst projection and the node MLP run on mma.sync too, their
+//    weights read from global memory once per block.
+//  - Shared memory holds what the warps read at every step: W_e2 and W_c1 as
+//    bf16, the per-feature vectors, src (rows of F + 8: a warp reads 8 rows
+//    at once, on distinct banks), dst and x; 22.4 KB at F = 32, N = 55.
+//    edge_attr is read from global memory. Registers set the occupancy:
+//    kFwdMinBlocks blocks (chains) an SM.
+//  - Padded rows (i >= N) run row N - 1's values and are not stored; the
+//    diagonal runs finite values and is masked out of every sum.
+
+constexpr int kFwdMinBlocks = 6;
+
+// logistic in one SFU operation: sigma(z) = 1/2 + tanh(z/2) / 2; saturates
+// for large |z|, so it is overflow-safe
+__device__ __forceinline__ float sigm_tanh(float z) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(0.5f * z));
+  return fmaf(0.5f, y, 0.5f);
+}
+
+template <int F>
+size_t fwd_tc_smem_bytes(int N) {
+  const int FS = F + 8;
+  return (size_t)2 * F * FS * sizeof(__nv_bfloat16) +
+         ((size_t)6 * F + 4 + (size_t)N * (FS + F) + pad4(3 * N)) * sizeof(float);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kTcThreads, kFwdMinBlocks)
+egcl_fwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
+                   const float* __restrict__ ea, const float* __restrict__ wts,
+                   const __nv_bfloat16* __restrict__ wtc, float* __restrict__ h_out,
+                   float* __restrict__ x_out, Cfg c) {
+  static_assert(F == 16 || F == 32, "F must be 16 or 32");
+  constexpr int V = F / 4, FS = F + 8, KS = F / 16;
+  extern __shared__ float4 smem4[];
+  const WOff o = woff(F);
+  const TcOff q = tcoff(F);
+  const int N = c.N, tid = threadIdx.x, nthr = blockDim.x;
+  const int b = blockIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const __nv_bfloat16* e2f = wsm + q.e2f;
+  const __nv_bfloat16* c1f = wsm + q.c1f;
+  float* vec = reinterpret_cast<float*>(wsm + 2 * F * FS);
+  const float *wr = vec, *we = vec + F, *be2 = vec + 2 * F, *watt = vec + 3 * F,
+              *bc1 = vec + 4 * F, *wc2 = vec + 5 * F;
+  float* src = vec + 6 * F + 4;  // rows of FS
+  float* dst = src + N * FS;     // rows of F
+  float* sx = dst + N * F;
+
+  // prologue: the two edge matrices, the vectors, the coordinates
+  {
+    const uint4* wg = reinterpret_cast<const uint4*>(wtc + q.e2f);
+    uint4* ws = reinterpret_cast<uint4*>(wsm);
+    for (int k = tid; k < 2 * F * FS / 8; k += nthr) ws[k] = wg[k];
+    for (int k = tid; k < F; k += nthr) {
+      vec[k] = wts[o.scal + k];
+      vec[F + k] = wts[o.scal + F + k];
+      vec[2 * F + k] = wts[o.be2 + k];
+      vec[3 * F + k] = wts[o.att + k];
+      vec[4 * F + k] = wts[o.bc1 + k];
+      vec[5 * F + k] = wts[o.c2 + k];
+    }
+    if (tid == 0) vec[6 * F] = wts[o.batt];
+    const float* xb = x + (size_t)b * N * 3;
+    for (int k = tid; k < 3 * N; k += nthr) sx[k] = xb[k];
+  }
+  const float* hb = h + (size_t)b * N * F;
+  const int i0 = 16 * warp;  // the warp's receivers, later its nodes
+  {  // src | dst = R(h) [W_src | W_dst] + [b_src | 0]
+    float hv[2][V];
+    load_tile<F>(hv, hb, F, i0, N, lane);
+    uint32_t a[KS][4];
+    to_frag<F>(hv, a);
+    float sd[2][2 * V];
+#pragma unroll
+    for (int v = 0; v < 2 * V; ++v) {
+      const int col = col_of(v, t);
+      sd[0][v] = sd[1][v] = col < F ? wts[o.bsrc + col] : 0.f;
+    }
+    mm<F, 2 * F>(sd, a, wtc + q.sd, lane);
+    store_tile<F, 2 * F>(sd, 0, src, FS, i0, N, lane);
+    store_tile<F, 2 * F>(sd, F, dst, F, i0, N, lane);
+  }
+  __syncthreads();
+
+  // the walk over senders j; the lane's rows are receivers i0 + g + 8r
+  const float batt = vec[6 * F];
+  const float* eab = ea + (size_t)b * N * N;
+  const int me = t & 1;  // the row whose coordinate weight and sums this lane keeps
+  int ii[2];
+  float xi[2][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + g + 8 * r;
+    ii[r] = i < N ? i : N - 1;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xi[r][k] = sx[3 * ii[r] + k];
+  }
+  const int i_me = i0 + g + 8 * me;
+  float agg[2][V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) agg[0][v] = agg[1][v] = 0.f;
+  float sw = 0.f, swx0 = 0.f, swx1 = 0.f, swx2 = 0.f;
+  for (int j = 0; j < N; ++j) {
+    const float xj0 = sx[3 * j], xj1 = sx[3 * j + 1], xj2 = sx[3 * j + 2];
+    float rad[2], eij[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float d0 = xi[r][0] - xj0, d1 = xi[r][1] - xj1, d2 = xi[r][2] - xj2;
+      rad[r] = d0 * d0 + d1 * d1 + d2 * d2;
+      eij[r] = eab[ii[r] * N + j];
+    }
+    uint32_t a[KS][4];
+    {  // silu(z1), z1 = (src_i + dst_j) + (radial w_r + edge_attr w_e)
+      float z[2][V];
+#pragma unroll
+      for (int v = 0; v < V; v += 2) {
+        const int col = col_of(v, t);
+        const float2 dj = *reinterpret_cast<const float2*>(dst + j * F + col);
+        const float2 wr2 = *reinterpret_cast<const float2*>(wr + col);
+        const float2 we2 = *reinterpret_cast<const float2*>(we + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 si = *reinterpret_cast<const float2*>(src + ii[r] * FS + col);
+          z[r][v] = (si.x + dj.x) + (rad[r] * wr2.x + eij[r] * we2.x);
+          z[r][v + 1] = (si.y + dj.y) + (rad[r] * wr2.y + eij[r] * we2.y);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int v = 0; v < V; ++v) z[r][v] *= sigm_tanh(z[r][v]);
+      to_frag<F>(z, a);
+    }
+    // m_pre = silu(z2), z2 = R(silu(z1)) W_e2 + b_e2; the attention logit
+    float mp[2][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) mp[0][v] = mp[1][v] = be2[col_of(v, t)];
+    mm<F, F>(mp, a, e2f, lane);
+    float lg[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        mp[r][v] *= sigm_tanh(mp[r][v]);
+        lg[r] += mp[r][v] * watt[col_of(v, t)];
+      }
+    float att[2] = {1.f, 1.f};
+    if (c.attention) {  // lane t finishes row t & 1, then the pair swaps gates
+      float l = (me ? lg[1] : lg[0]) + __shfl_xor_sync(0xffffffffu, me ? lg[0] : lg[1], 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float mine = sigm_tanh(l + batt);
+      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
+      att[0] = me ? other : mine;
+      att[1] = me ? mine : other;
+    }
+    // m = m_pre * att, off the diagonal; agg_i += m; cz = R(m) W_c1 + b_c1
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float gate = j != i0 + g + 8 * r ? att[r] : 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        mp[r][v] *= gate;
+        agg[r][v] += mp[r][v];
+      }
+    }
+    to_frag<F>(mp, a);
+    float cz[2][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) cz[0][v] = cz[1][v] = bc1[col_of(v, t)];
+    mm<F, F>(cz, a, c1f, lane);
+    float cm[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) cm[r] += cz[r][v] * sigm_tanh(cz[r][v]) * wc2[col_of(v, t)];
+    // cm of row me; the coordinate weight w_ij = a(cm) / (|x_i - x_j| + 1)
+    float cmr = (me ? cm[1] : cm[0]) + __shfl_xor_sync(0xffffffffu, me ? cm[0] : cm[1], 1);
+    cmr += __shfl_xor_sync(0xffffffffu, cmr, 2);
+    const float den = sqrtf((me ? rad[1] : rad[0]) + 1e-8f) + 1.f;
+    const float av = c.tanh ? tanhf(cmr) * c.coords_range : cmr;
+    const float wij = j != i_me ? av / den : 0.f;
+    sw += wij;
+    swx0 += wij * xj0;
+    swx1 += wij * xj1;
+    swx2 += wij * xj2;
+  }
+
+  // x_out_i = x_i + x_i sum_j w_ij - sum_j w_ij x_j: lanes t = 0, 1 of a quad
+  if (t < 2 && i_me < N) {
+    float* xo = x_out + ((size_t)b * N + i_me) * 3;
+    const float x0 = me ? xi[1][0] : xi[0][0], x1 = me ? xi[1][1] : xi[0][1],
+                x2 = me ? xi[1][2] : xi[0][2];
+    xo[0] = x0 + x0 * sw - swx0;
+    xo[1] = x1 + x1 * sw - swx1;
+    xo[2] = x2 + x2 * sw - swx2;
+  }
+
+  // node MLP of the warp's 16 nodes: h_out = h + R(silu(R([h, agg]) W_n1 + b_n1)) W_n2 + b_n2
+  {
+    uint32_t a[2 * KS][4];
+    float hv[2][V];
+    load_tile<F>(hv, hb, F, i0, N, lane);
+    to_frag<F>(hv, a);
+    to_frag<F>(agg, a + KS);
+    float nz[2][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) nz[0][v] = nz[1][v] = wts[o.bn1 + col_of(v, t)];
+    mm<2 * F, F>(nz, a, wtc + q.n1f, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) nz[r][v] = silu(nz[r][v]);
+    to_frag<F>(nz, a);
+    float y[2][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) y[0][v] = y[1][v] = 0.f;
+    mm<F, F>(y, a, wtc + q.n2f, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[r][v] = hv[r][v] + y[r][v] + wts[o.bn2 + col_of(v, t)];
+    store_tile<F, F>(y, 0, h_out + (size_t)b * N * F, F, i0, N, lane);
+  }
+}
+
+template <int F>
+int launch_fwd_tc(const float* h, const float* x, const float* ea, const float* wts,
+                  const __nv_bfloat16* wtc, float* h_out, float* x_out, int B, const Cfg& c,
+                  cudaStream_t s) {
+  if (c.N < 1 || c.N > kTcMaxN) return (int)cudaErrorInvalidValue;
+  const size_t bytes = fwd_tc_smem_bytes<F>(c.N);
+  const int err = prepare(egcl_fwd_tc_kernel<F>, bytes);
+  if (err) return err;
+  const int warps = (c.N + 15) / 16;  // one per 16-receiver tile
+  egcl_fwd_tc_kernel<F><<<B, 32 * warps, bytes, s>>>(h, x, ea, wts, wtc, h_out, x_out, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Length in bf16 elements of the tensor-core kernel's weight buffer.
@@ -678,6 +959,26 @@ extern "C" int pita_egcl_backward_tc(const float* h, const float* x, const float
   switch (F) {
     case 16: return launch_bwd_tc<16>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
     case 32: return launch_bwd_tc<32>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// pita_egcl_forward (csrc/egnn_layer.cu) in bf16 compute, on tensor cores:
+// h (B, N, F), x (B, N, 3), ea (B, N, N) -> h_out (B, N, F), x_out (B, N, 3),
+// all f32 and contiguous; wts is the f32 buffer of pack_weights(w, bf16), of
+// which the vectors are read, wtc the bf16 matrices of pack_weights_tc
+// (16-byte aligned). N <= pita_egcl_tc_max_n().
+extern "C" int pita_egcl_forward_tc(const float* h, const float* x, const float* ea,
+                                    const float* wts, const void* wtc, float* h_out,
+                                    float* x_out, int B, int N, int F, int attention, int tanh,
+                                    float coords_range, void* stream) {
+  if (B <= 0) return 0;
+  const Cfg c{N, 1, attention, tanh, coords_range};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wtc);
+  switch (F) {
+    case 16: return launch_fwd_tc<16>(h, x, ea, wts, w, h_out, x_out, B, c, s);
+    case 32: return launch_fwd_tc<32>(h, x, ea, wts, w, h_out, x_out, B, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,10 +14,11 @@ compute dtype, f32 accumulation, elementwise math in f32. In the VJP the
 rounding counts as the identity (straight-through), so cotangents stay f32.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it runs
-the plain version. K3 has two kernels, chosen by the compute dtype: bf16 runs
-the tensor-core kernel of ``csrc/egnn_layer_tc.cu`` (``egnn_layer_backward_tc``),
-f32 the scalar ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``, which stays the
-kernel of record for f32 (tensor cores would change f32 results).
+the plain version. K2 and K3 each have two kernels, chosen by the compute
+dtype: bf16 runs the tensor-core kernels of ``csrc/egnn_layer_tc.cu``
+(``egnn_layer_forward_tc``, ``egnn_layer_backward_tc``), f32 the scalar
+``egcl_fwd_kernel`` and ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``, which
+stay the kernels of record for f32 (tensor cores would change f32 results).
 """
 
 import ctypes
@@ -154,12 +155,13 @@ def pack_weights(w, cd=torch.float32) -> torch.Tensor:
 
 
 def pack_weights_tc(w) -> torch.Tensor:
-    """The bf16 matrices of the tensor-core VJP in the layout of
+    """The bf16 matrices of the tensor-core forward and VJP in the layout of
     ``csrc/egnn_layer_tc.cu:tcoff``: for each product Y = A M, the transpose
     of M row by row, each row padded by 8 elements, all rounded to bf16."""
     e2, c1, ws, wd, n1, n2 = (w[f].detach().float().to(torch.bfloat16)
                               for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
-    mats = (e2.T, c1.T, e2, c1, torch.cat([ws.T, wd.T]), n1.T, n2, n1, torch.cat([ws, wd], 1))
+    mats = (e2.T, c1.T, e2, c1, torch.cat([ws.T, wd.T]), n1.T, n2, n1, torch.cat([ws, wd], 1),
+            n2.T)
     return torch.cat([torch.nn.functional.pad(m, (0, 8)).reshape(-1) for m in mats]).contiguous()
 
 
@@ -192,6 +194,10 @@ def _lib_tc():
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_backward_tc.restype = ctypes.c_int
+    lib.pita_egcl_forward_tc.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_forward_tc.restype = ctypes.c_int
     return lib
 
 
@@ -235,12 +241,26 @@ def _kernel_args(h, packed, cfg, backward):
             int(cfg.get("tanh", True)), float(cfg.get("coords_range", 5.0)))
 
 
-def egnn_layer_forward(h, x, edge_attr, w, packed=None, **cfg):
+def egnn_layer_forward(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
     """One EGCL layer forward (K2); returns (h_out, x_out).
 
     ``cfg``: attention, tanh, coords_range, cd. ``packed``: the output of
     ``pack_weights(w, cd)`` on the inputs' device, built here if not given.
+    On CUDA the compute dtype picks the kernel: bf16 runs the tensor-core
+    kernel (``egnn_layer_forward_tc``, ``packed_tc`` from ``pack_weights_tc``),
+    f32 the scalar kernel, whose launches this function counts.
     """
+    if cfg.get("cd", torch.float32) == torch.bfloat16:
+        return egnn_layer_forward_tc(h, x, edge_attr, w, packed=packed, packed_tc=packed_tc,
+                                     **cfg)
+    return _forward_scalar(h, x, edge_attr, w, packed, **cfg)
+
+
+def _forward_scalar(h, x, edge_attr, w, packed=None, **cfg):
+    """The scalar K2 (``egcl_fwd_kernel``) in either compute dtype, counted
+    on ``egnn_layer_forward.launches``: ``egnn_layer_forward``'s f32 route.
+    bf16 reaches it only when called directly, to time it against the
+    tensor-core kernel."""
     _check_inputs(h, x, edge_attr)
     if h.device.type == "cpu":
         with torch.no_grad():
@@ -292,19 +312,15 @@ def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None,
     return dh, dx, dea
 
 
-def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
-    """K3 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
-    (dh, dx, dea). Takes F in (16, 32) and N up to 64; raises on anything
-    else, and on a compute dtype other than bf16."""
-    _check_inputs(h, x, edge_attr, gh, gx)
-    if cfg.get("cd", torch.float32) != torch.bfloat16:
-        raise ValueError("the tensor-core EGCL VJP computes in bf16 only")
-    if h.device.type == "cpu":
-        return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
+def _tc_launch_args(h, w, packed, packed_tc, cfg, what):
+    """The library and the leading arguments of a tensor-core launch:
+    (lib, packed, packed_tc, (B, N, F, attention, tanh, coords_range)).
+    Raises on F outside (16, 32), N above the kernels' limit, or a
+    ``packed_tc`` that is not ``pack_weights_tc(w)`` on the inputs' device."""
     B, N, F = h.shape
     lib = _lib_tc()
     if F not in (16, 32) or N > lib.pita_egcl_tc_max_n():
-        raise ValueError(f"the tensor-core EGCL VJP takes F in (16, 32) and N <= "
+        raise ValueError(f"the tensor-core EGCL {what} takes F in (16, 32) and N <= "
                          f"{lib.pita_egcl_tc_max_n()}; got F={F}, N={N}")
     if packed is None:
         packed = pack_weights(w, torch.bfloat16).to(h.device)
@@ -316,6 +332,46 @@ def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=No
             or packed_tc.numel() != lib.pita_egcl_tc_weights_len(F)):
         raise ValueError(f"packed_tc must be pack_weights_tc(w) for hidden width {F}, "
                          "contiguous and 16-byte aligned on the inputs' device")
+    return lib, packed, packed_tc, (B, N, F, *args[4:])
+
+
+def _check_bf16(cfg, what):
+    if cfg.get("cd", torch.float32) != torch.bfloat16:
+        raise ValueError(f"the tensor-core EGCL {what} computes in bf16 only")
+
+
+def egnn_layer_forward_tc(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
+    """K2 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
+    (h_out, x_out). Takes F in (16, 32) and N up to 64; raises on anything
+    else, and on a compute dtype other than bf16."""
+    _check_inputs(h, x, edge_attr)
+    _check_bf16(cfg, "forward")
+    if h.device.type == "cpu":
+        with torch.no_grad():
+            return layer_step(h, x, edge_attr, w, **cfg)
+    lib, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "forward")
+    h, x, edge_attr = (t.contiguous() for t in (h, x, edge_attr))
+    h_out, x_out = torch.empty_like(h), torch.empty_like(x)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.pita_egcl_forward_tc(
+            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), packed.data_ptr(),
+            packed_tc.data_ptr(), h_out.data_ptr(), x_out.data_ptr(), *args, stream,
+        )
+    _build.check(err, "egnn_layer_forward_tc")
+    egnn_layer_forward_tc.launches += 1
+    return h_out, x_out
+
+
+def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
+    """K3 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
+    (dh, dx, dea). Takes F in (16, 32) and N up to 64; raises on anything
+    else, and on a compute dtype other than bf16."""
+    _check_inputs(h, x, edge_attr, gh, gx)
+    _check_bf16(cfg, "VJP")
+    if h.device.type == "cpu":
+        return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
+    lib, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "VJP")
     h, x, edge_attr, gh, gx = (t.contiguous() for t in (h, x, edge_attr, gh, gx))
     dh, dx, dea = torch.empty_like(h), torch.empty_like(x), torch.empty_like(edge_attr)
     with torch.cuda.device(h.device):
@@ -323,7 +379,7 @@ def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=No
         err = lib.pita_egcl_backward_tc(
             h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), gh.data_ptr(),
             gx.data_ptr(), packed.data_ptr(), packed_tc.data_ptr(), dh.data_ptr(),
-            dx.data_ptr(), dea.data_ptr(), B, N, F, *args[4:], stream,
+            dx.data_ptr(), dea.data_ptr(), *args, stream,
         )
     _build.check(err, "egnn_layer_backward_tc")
     egnn_layer_backward_tc.launches += 1
@@ -331,6 +387,7 @@ def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=No
 
 
 egnn_layer_forward.launches = 0
+egnn_layer_forward_tc.launches = 0
 egnn_layer_backward.launches = 0
 egnn_layer_backward_tc.launches = 0
 
@@ -338,9 +395,9 @@ egnn_layer_backward_tc.launches = 0
 class EGCLFunction(torch.autograd.Function):
     """One EGCL layer, differentiable in (h, x, edge_attr) only.
 
-    The forward runs K2 and saves only its inputs; the backward runs K3
-    (its tensor-core kernel in bf16), which rebuilds the edge tensors on
-    chip. Weights get no gradient (inference only): a weight that requires
+    The forward runs K2 and saves only its inputs; the backward runs K3,
+    which rebuilds the edge tensors on chip; in bf16 both run their
+    tensor-core kernels. Weights get no gradient (inference only): a weight that requires
     grad raises.
     """
 
@@ -350,8 +407,10 @@ class EGCLFunction(torch.autograd.Function):
             raise RuntimeError("EGCLFunction is inference-only: weights must not require grad")
         ctx.layer = layer
         ctx.save_for_backward(h, x, edge_attr)
-        return egnn_layer_forward(h, x, edge_attr, layer.weights(),
-                                  packed=layer.packed(h.device), **layer.cfg)
+        tc = layer.cfg["cd"] == torch.bfloat16
+        return egnn_layer_forward(h, x, edge_attr, layer.weights(), packed=layer.packed(h.device),
+                                  packed_tc=layer.packed(h.device, tc=True) if tc else None,
+                                  **layer.cfg)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -184,7 +184,10 @@ def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 8,
     states, xc = [], xs
     for layer, packed in zip(backbone.layers, packs):
         states.append((h, xc))
-        h, xc = egnn_layer_forward(h, xc, ea, layer.weights(), packed=packed, **layer.cfg)
+        tc = dev.type == "cuda" and layer.cfg["cd"] == torch.bfloat16
+        h, xc = egnn_layer_forward(h, xc, ea, layer.weights(), packed=packed,
+                                   packed_tc=layer.packed(dev, tc=True) if tc else None,
+                                   **layer.cfg)
 
     eye = torch.eye(D, dtype=torch.float32, device=dev)
     trace = torch.zeros(B, device=dev)

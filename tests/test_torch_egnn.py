@@ -229,13 +229,14 @@ def test_pack_weights_layout():
 def test_pack_weights_tc_layout(hidden):
     """The bf16 buffer of csrc/egnn_layer_tc.cu (tcoff): for each product
     Y = A M the transpose of M, rows padded by 8 zeros, equal to the weights
-    as the matmuls see them (rounded_weights in bf16)."""
+    as the matmuls see them (rounded_weights in bf16). The last matrix is the
+    forward's node output product (M = W_n2)."""
     _, tw = _one_layer(seed=3, hidden=hidden)
     F = hidden
     rw = el.rounded_weights(tw, torch.bfloat16)
     e2, c1, ws, wd, n1, n2 = (rw[f] for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
     want = [e2.T, c1.T, e2, c1, torch.cat([ws.T, wd.T]), n1.T, n2, n1,
-            torch.cat([ws, wd], 1)]
+            torch.cat([ws, wd], 1), n2.T]
     buf = el.pack_weights_tc(tw)
     assert buf.dtype == torch.bfloat16 and buf.is_contiguous()
     off = 0
@@ -246,7 +247,7 @@ def test_pack_weights_tc_layout(hidden):
         assert not block[:, cols:].any()
         off += rows * (cols + 8)
     # tcoff(F).total
-    assert buf.numel() == off == 9 * F * (F + 8) + 2 * F * (2 * F + 8)
+    assert buf.numel() == off == 10 * F * (F + 8) + 2 * F * (2 * F + 8)
 
 
 def test_egcl_backward_dispatches_by_compute_dtype():
@@ -276,3 +277,48 @@ def test_egcl_backward_dispatches_by_compute_dtype():
     assert buf is layer.packed(torch.device("cpu"), tc=True)
     torch.testing.assert_close(buf, el.pack_weights_tc(w), rtol=0, atol=0)
     assert layer.packed(torch.device("cpu")).dtype == torch.float32
+
+
+def test_egcl_forward_dispatches_by_compute_dtype():
+    """The forward as the VJP above: bf16 goes to the tensor-core wrapper,
+    f32 to the scalar one; on the CPU both give layer_step exactly and
+    neither counts a launch. The tensor-core wrapper refuses f32, and the
+    layer's forward (EGCLFunction) is layer_step in either dtype."""
+    mod, params = _jax_model(7, 16, 1, seed=10)
+    layer = _port_model(mod, params, cd=torch.bfloat16).layers[0]
+    h, x, ea = (torch.as_tensor(a) for a in _layer_inputs(3, 7, 16, 11))
+    w = layer.weights()
+    counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches)
+    before = counts()
+    for cd in (torch.bfloat16, torch.float32):
+        cfg = dict(CFG, cd=cd)
+        ref = el.layer_step(h, x, ea, w, **cfg)
+        for got in (el.egnn_layer_forward(h, x, ea, w, **cfg),
+                    el.egnn_layer_forward(h, x, ea, w, packed_tc=layer.packed(h.device, tc=True),
+                                          **cfg)):
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    cfg = dict(CFG, cd=torch.bfloat16)
+    got = el.egnn_layer_forward_tc(h, x, ea, w, **cfg)
+    for a, b in zip(got, el.layer_step(h, x, ea, w, **cfg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(layer(h, x, ea), el.layer_step(h, x, ea, w, **layer.cfg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert counts() == before
+    with pytest.raises(ValueError, match="bf16 only"):
+        el.egnn_layer_forward_tc(h, x, ea, w, **dict(CFG, cd=torch.float32))
+
+
+def test_layer_forward_bf16_matches_jax():
+    """The bf16 forward of the port (the tensor-core wrapper's plain version
+    on the CPU) against pita_tpu's _layer_step in bf16 compute."""
+    jw, tw = _one_layer(seed=12)
+    h, x, ea = _layer_inputs(4, 7, 16, seed=13)
+    ho_j, xo_j = _jax_layer(jnp.asarray(h), jnp.asarray(x), jnp.asarray(ea), jw, cd=jnp.bfloat16)
+    ho_t, xo_t = el.egnn_layer_forward_tc(torch.as_tensor(h), torch.as_tensor(x),
+                                          torch.as_tensor(ea), tw, cd=torch.bfloat16, **CFG)
+    # both round the same matmul inputs to bf16; an f32 value one ulp apart can
+    # round to a neighbouring bf16 (relative step 2^-8)
+    for got, ref in ((ho_t, ho_j), (xo_t, xo_j)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-2 * np.abs(ref).max())

@@ -74,8 +74,8 @@ def _random_layer(F, device, seed):
     (32, 55, torch.bfloat16, 3e-2, 64),
     (16, 13, torch.float32, 1e-4, 64),
     (16, 40, torch.bfloat16, 3e-2, 64),
-    # the tensor-core K3 only: its largest N (4 full tiles), one ragged tile
-    # at F=32, and the Hutchinson launch's 4096 chains
+    # bf16 only (the tensor-core K2 and K3): their largest N (4 full tiles),
+    # one ragged tile at F=32, and the Hutchinson launch's 4096 chains
     (32, 64, torch.bfloat16, 3e-2, 64),
     (32, 13, torch.bfloat16, 3e-2, 64),
     (32, 55, torch.bfloat16, 3e-2, 4096),
@@ -87,16 +87,17 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
     h = torch.randn(B, N, F, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
-    # bf16 runs the tensor-core K3, f32 the scalar one
+    # bf16 runs the tensor-core K2 and K3, f32 the scalar ones
     tc = cd == torch.bfloat16
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
-        counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches,
-                          el.egnn_layer_backward_tc.launches)
+        counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches,
+                          el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches)
         before = counts()
         got = (*el.egnn_layer_forward(h, x, ea, w, **cfg),
                *el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg))
-        assert counts() == (before[0] + 1, before[1] + (not tc), before[2] + tc)
+        assert counts() == (before[0] + (not tc), before[1] + tc, before[2] + (not tc),
+                            before[3] + tc)
         with torch.no_grad():
             ref = (*el.layer_step(h, x, ea, w, **cfg),
                    *el.layer_vjp(h, x, ea, gh, gx, w, **cfg))
@@ -106,6 +107,42 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
             assert (a - b).abs().max() <= tol * b.abs().max()
         # dea is written for every edge, 0 on the diagonal
         assert not got[4].diagonal(dim1=1, dim2=2).any()
+
+
+@pytest.mark.parametrize("F,N,B", [
+    (32, 55, 64), (32, 64, 64), (32, 13, 64), (16, 55, 64), (16, 64, 64), (16, 13, 64),
+    (32, 55, 4096),  # the Hutchinson launch
+])
+def test_egcl_tc_forward_matches_plain(cuda, F, N, B):
+    """The tensor-core K2 against layer_step in bf16, on random weights at
+    F = 16 and the bench's layer at F = 32; two launches on the same inputs
+    are bitwise equal (the sums over senders run in a fixed order)."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    g = torch.Generator(device=cuda).manual_seed(N + 2)
+    x = torch.randn(B, N, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(B, N, F, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    for attention, tanh in ((True, True), (False, False)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.bfloat16)
+        before = el.egnn_layer_forward_tc.launches
+        got = el.egnn_layer_forward_tc(h, x, ea, w, **cfg)
+        again = el.egnn_layer_forward_tc(h, x, ea, w, **cfg)
+        assert el.egnn_layer_forward_tc.launches == before + 2
+        with torch.no_grad():
+            ref = el.layer_step(h, x, ea, w, **cfg)
+        torch.cuda.synchronize()
+        for a, a2, b in zip(got, again, ref):
+            assert torch.equal(a, a2)
+            # now and then a neighbouring bf16 rounding (TOL_BF16 of chip_smoke.py)
+            assert (a - b).abs().max() <= 3e-2 * b.abs().max()
+
+
+def test_egcl_tc_forward_refuses_large_n(cuda):
+    w = _random_layer(16, cuda, seed=1)
+    h, x = torch.zeros(2, 65, 16, device=cuda), torch.zeros(2, 65, 3, device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_forward_tc(h, x, torch.zeros(2, 65, 65, device=cuda), w,
+                                 cd=torch.bfloat16)
 
 
 def test_egcl_tc_backward_refuses_large_n(cuda):
