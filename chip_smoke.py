@@ -25,12 +25,14 @@ Phases, each printing lines, each failing the run on disagreement:
      MALA steps; energy W2 against the ground-truth samples and against the
      exact-divergence population of bench_lj55_exact_energies.npy; the K1
      counter must move; fails on non-finite samples or W2 > 2 sigma_GT;
-  6. K5 (G-operator contraction) against its plain version (materialized G,
-     bf16-rounded, f32 einsum): primals of layers 1 and 2 of the bench score
-     net at t = 0.5 on perturbed ground-truth samples and on first-step inputs
-     (prior samples at t = 1), 64 chains x 165 tangents, and near-integer
-     inputs exactly; then compared and timed at the main path's launch, a
-     chunk of 256 chains x 165 tangents;
+  6. K5 (G-operator contraction, the tensor-core kernel) against its plain
+     version (materialized G, bf16-rounded, f32 einsum): primals of layers 1
+     and 2 of the bench score net at t = 0.5 on perturbed ground-truth samples
+     and on first-step inputs (prior samples at t = 1), 64 chains x 165
+     tangents, and near-integer inputs exactly; then at the main path's
+     launch, a chunk of 256 chains x 165 tangents: compared (the scalar K5
+     too), launched twice for a bitwise-equal result, and timed in turns with
+     the scalar K5 beside a torch.bmm yardstick;
   7. K4 (EGCL layer tangent) against its plain version: each layer in f32 and
      bf16 on the tangents the trace gives it, 64 chains x 64 tangents; then
      the whole forward-mode trace against the edge-operator trace; then
@@ -41,15 +43,17 @@ Phases, each printing lines, each failing the run on disagreement:
      draws: the K5 route and the K4 route each against the materialized-G
      route; samples identical, final log-weights within tolerance, with the
      bf16 and with an f32 backbone (whose runs must launch the scalar f32
-     K2 and K3, and the bf16 runs the scalar K2 never); then the trace by the
-     three routes on a
-     full-width backbone with random weights, where the G-operator term is
-     not as small as on the trained ones;
+     K2 and K3, and the bf16 runs the scalar K2 never; no run the scalar
+     K5); then the trace by the three routes on a full-width backbone with
+     random weights, where the G-operator term is not as small as on the
+     trained ones;
   9. the second main path, timed: quadrature_k10 of bench.py (exact
      divergence every 10th step, resampling every step, chain chunks of 256)
      at 2048 chains x 100 steps once per route, each after a 10-step warm-up,
-     the tensor-core K2 and K4/K5 counters must move; then exact (every
-     step) at 256 chains x 100 steps per kernel route;
+     the tensor-core K2 and K4/K5 counters must move, the K5 route must
+     launch the tensor-core K5 once per evaluation and chain chunk (80 times)
+     and the scalar K5 never; then exact (every step) at 256 chains x 100
+     steps per kernel route;
  10. the exact-divergence quality run: quadrature_k10 on the faster kernel
      route, 512 chains x 400 steps, final resample, 30 MALA steps, both arms
      of the gate as in phase 5.
@@ -59,7 +63,8 @@ and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
 off for matmuls and convolutions, so float32 stays float32.
 
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
---profile adds a torch.profiler breakdown of each timed main path;
+--profile adds a torch.profiler breakdown of each timed main path (for the
+K5 route also its five largest PyTorch kernels);
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
 """
 
@@ -396,22 +401,34 @@ def phase_g_op(wl, data):
         fail("K5 differs from its plain version on near-integer inputs (indexing)")
 
     # the main path's shape: its chain chunk of 256 and all 165 tangents,
-    # compared and timed
+    # compared (the scalar K5 too), repeated bitwise, and timed
     B = 256
     x_flat = base[:B] + 0.01 * randn(B, 165)
     prim = g_op_args(wl, x_flat, 0.5, layers=(1,))[0]
     bv = randn(T, B, N, F) * 0.1
     got = g_op.g_operator_contract(*prim, bv)
+    again = g_op.g_operator_contract(*prim, bv)
     ref = g_op.g_operator_contract_plain(*prim, bv)
+    got_s = g_op._contract_scalar(*prim, bv)
     torch.cuda.synchronize()
     rel, ab = rel_err(got, ref)
+    rel_s, ab_s = rel_err(got_s, ref)
     worst_abs = max(worst_abs, ab)
+    same = torch.equal(got, again)
     print(f"[phase 6] K5 t=0.5 data layer 1 B={B} T={T} (the main path's launch): max |t2| "
-          f"{float(ref.abs().max()):.3e}, max abs err {ab:.3e} rel {rel:.3e} (tol rel {TOL_GOP})")
-    if not rel <= TOL_GOP:
+          f"{float(ref.abs().max()):.3e}, max abs err {ab:.3e} rel {rel:.3e}; scalar K5 "
+          f"{ab_s:.3e} rel {rel_s:.3e} (tol rel {TOL_GOP}); a second launch "
+          f"{'bitwise equal' if same else 'DIFFERENT'}")
+    if not (rel <= TOL_GOP and rel_s <= TOL_GOP):
         fail("K5 disagrees with its plain version at the main path's shape")
-    del got, ref
-    ms = cuda_ms(lambda: g_op.g_operator_contract(*prim, bv), reps=5, warmup=1)
+    if not same:
+        fail("two launches of the tensor-core K5 on the same inputs differ")
+    del got, again, ref, got_s
+    # in turns: scalar, tensor cores, tensor cores, scalar
+    turns = [cuda_ms(lambda: f(*prim, bv), reps=5, warmup=1)
+             for f in (g_op._contract_scalar, g_op.g_operator_contract,
+                       g_op.g_operator_contract, g_op._contract_scalar)]
+    ms, ms_s = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain = cuda_ms(lambda: g_op.g_operator_contract_plain(*prim, bv), reps=2, warmup=1)
     sp1, sp2, att_mask, satq, m_pre, w2 = prim
     G = (att_mask[..., None, None] * (sp1[..., :, None] * w2 * sp2[..., None, :])
@@ -425,11 +442,13 @@ def phase_g_op(wl, data):
     # unmasked edge and tangent, on bf16 operands
     n_bytes = 4 * (4 * B * N * N * F + B * N * N + F * F + 2 * T * B * N * F)
     bnd, by = bound_ms(n_bytes, 2 * F * F * N * (N - 1) * T * B, PEAK_BF16)
-    print(f"[phase 6] K5 B={B} T={T}: kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-          f"{bnd:.4f} ms ({by}), one torch.bmm of a pre-materialized bf16 G (excludes "
-          f"building G) {lib:.3f} ms")
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib)
+    print(f"[phase 6] K5 B={B} T={T}: tensor-core kernel {ms:.4f} ms, in turns with the scalar "
+          f"K5 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar); plain "
+          f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}), one torch.bmm of a pre-materialized "
+          f"bf16 G (excludes building G) {lib:.3f} ms")
+    common = dict(plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
+    return (dict(max_abs_err=worst_abs, ms=ms, **common),
+            dict(max_abs_err=ab_s, ms=ms_s, **common))
 
 
 def phase_tangent(wl, wl32, data):
@@ -636,6 +655,8 @@ def phase_wiring(wl, wl32, data, kernels):
             want = {"g_kernel": "g_operator_contract", "tangent_kernel": "egnn_layer_tangent"}
             if route in want and counts[want[route]] == 0:
                 fail(f"the {route} route did not launch {want[route]}")
+            if counts["_contract_scalar"]:
+                fail(f"the {route} route ({name} backbone) launched the scalar K5")
         ref = res["materialized"]
         if not torch.isfinite(ref.logweights).all():
             fail("wiring run produced non-finite log-weights")
@@ -692,8 +713,18 @@ def timed_exact_run(wl, x1, cfg, label, kernels, profile):
           f"unique ancestors after the last step {int(res.num_unique[-1])}")
     if counts["egnn_layer_forward_tc"] == 0 or counts["egnn_layer_forward"] != 0:
         fail(f"{label} did not run the tensor-core EGCL forward kernel alone")
+    if counts["_contract_scalar"]:
+        fail(f"{label} launched the scalar K5")
+    if cfg.divergence_g_kernel:
+        # one tensor-core K5 per divergence evaluation and chain chunk
+        want = (len(range(0, n_steps, cfg.divergence_update_interval))
+                * -(-n_chains // cfg.divergence_chunk_size))
+        print(f"[phase 9] {label}: tensor-core K5 launched {counts['g_operator_contract']} "
+              f"times ({want} expected), the scalar K5 {counts['_contract_scalar']}")
+        if counts["g_operator_contract"] != want:
+            fail(f"{label} did not launch the tensor-core K5 once per evaluation and chunk")
     if profile:
-        profile_main_path(wl, x1, cfg, label)
+        profile_main_path(wl, x1, cfg, label, plain_top=cfg.divergence_g_kernel)
     return rate, counts
 
 
@@ -713,9 +744,16 @@ def reset_counts(ops):
         f.launches = 0
 
 
-def profile_main_path(wl, x1, cfg, label):
+# the port's own kernels, by their names in a profile
+OWN_KERNELS = ("egcl_fwd_kernel", "egcl_bwd_kernel", "egcl_fwd_tc_kernel", "egcl_bwd_tc_kernel",
+               "egcl_tan_kernel", "g_op_kernel", "g_op_tc_kernel", "pack_panel_kernel",
+               "lj_kernel")
+
+
+def profile_main_path(wl, x1, cfg, label, plain_top=False):
     """torch.profiler over one run of a timed configuration: device time by
-    kernel, and the device's busy share of the wall time."""
+    kernel, and the device's busy share of the wall time. With ``plain_top``
+    also the five largest PyTorch kernels (none of the port's own)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -736,9 +774,18 @@ def profile_main_path(wl, x1, cfg, label):
     print(f"[profile] {label}, {cfg.num_integration_steps} steps x {x1.shape[0]} chains: wall "
           f"{wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms = "
           f"{100 * busy / wall_ms:.1f} %")
-    for e in rows[:14]:
-        print(f"[profile] {dev(e):9.2f} ms  {100 * dev(e) / busy:5.1f} %  x{e.count:<5d} "
-              f"{e.key[:90]}")
+    own = lambda e: any(k in e.key for k in OWN_KERNELS)
+    # the 14 largest rows, then the port's own kernels below them
+    for i, e in enumerate(rows):
+        if i < 14 or own(e):
+            print(f"[profile] {dev(e):9.2f} ms  {100 * dev(e) / busy:5.1f} %  x{e.count:<5d} "
+                  f"{e.key[:90]}")
+    if plain_top:
+        plain = [e for e in rows if not own(e)]
+        print(f"[profile] {label}: PyTorch kernels {sum(dev(e) for e in plain):.1f} ms in all; "
+              f"the five largest:")
+        for e in plain[:5]:
+            print(f"[profile]   {dev(e):9.2f} ms  x{e.count:<5d} {e.key[:160]}")
 
 
 def quality(wl, data, seed, make_cfg=None, phase=5, label="hutch_ess_k10"):
@@ -812,7 +859,7 @@ def main():
     from pita_torch.ops.egnn_layer import (egnn_layer_backward, egnn_layer_backward_tc,
                                            egnn_layer_forward, egnn_layer_forward_tc)
     from pita_torch.ops.egnn_tangent import egnn_layer_tangent
-    from pita_torch.ops.g_op import g_operator_contract
+    from pita_torch.ops.g_op import _contract_scalar, g_operator_contract
     from pita_torch.ops.lj import lj_log_prob_and_force
     from pita_torch.sampler import integrate_sde
 
@@ -832,7 +879,7 @@ def main():
     # phases 2, 3, 6, 7: every kernel against its plain version
     k1 = phase_lj(data)
     eg = phase_egcl(wl, data)
-    k5 = phase_g_op(wl, data)
+    k5, k5_scalar = phase_g_op(wl, data)
     k4 = phase_tangent(wl, wl32, data)
     if "--kernels-only" in sys.argv[1:]:  # quick check of a kernel change
         return 0
@@ -840,7 +887,7 @@ def main():
     # phase 4: the first main path, timed
     kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
                egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
-               g_operator_contract)
+               g_operator_contract, _contract_scalar)
     gen = torch.Generator("cuda").manual_seed(0)
     n_chains, n_steps = 2048, 100
     x1 = torch.randn(n_chains, 165, generator=gen, device="cuda") * wl.prior_scale
@@ -949,8 +996,13 @@ def main():
              max_abs_err=eg["f32"][1], library_ms=None, **eg["bwd_f32"]),
         dict(name="egcl_tangent", route="cuda", source=src + "egnn_tangent.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_launches, **k4),
-        dict(name="g_operator_contract", route="cuda", source=src + "g_op.cu",
+        dict(name="g_operator_contract_tc", route="cuda", source=src + "g_op.cu",
              replaces="pita_tpu/ops/pallas/g_op.py:133", launches=k5_launches, **k5),
+        # the scalar K5, timed as the yardstick; phases 8 and 9 require that
+        # no route launches it
+        dict(name="g_operator_contract_scalar", route="cuda", source=src + "g_op.cu",
+             replaces="pita_tpu/ops/pallas/g_op.py:133",
+             launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
     ]}
     print(json.dumps(line))
     print(smi)

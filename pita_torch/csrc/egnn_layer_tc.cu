@@ -46,6 +46,7 @@
 //    51.8 KB at F=32, N=55, so four blocks (16 warps) fit on an SM.
 
 #include "egnn_common.cuh"
+#include "mma_bf16.cuh"
 
 #include <cstdint>
 
@@ -94,19 +95,6 @@ size_t tc_smem_floats(int N) {
 __device__ __forceinline__ float sigm_fast(float z) {
   const float e = __expf(-fabsf(z));
   return __fdividef(z >= 0.f ? 1.f : e, 1.f + e);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A tile of 16 rows x C columns in registers, in the mma accumulator layout:

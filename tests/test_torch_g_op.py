@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from pita_tpu.ops.pallas.g_op import g_operator_contract as jax_g_op
-from pita_torch.ops.g_op import g_operator_contract, g_operator_contract_plain
+from pita_torch.ops.g_op import _contract_scalar, g_operator_contract, g_operator_contract_plain
 
 
 def _inputs(N, F, T, B, seed, integer=False):
@@ -77,3 +77,21 @@ def test_wrapper_refuses_bad_inputs(bad):
         err = ValueError
     with pytest.raises(err):
         g_operator_contract(*args)
+
+
+def test_cpu_tensors_take_the_plain_version_at_any_width():
+    """The tensor-core kernel's limits (N <= 64, F in {16, 32}) hold on CUDA
+    only: on the CPU the wrapper is the plain version for any shape."""
+    args = [torch.as_tensor(a) for a in _inputs(3, 24, 5, 2, seed=4)]
+    torch.testing.assert_close(g_operator_contract(*args), g_operator_contract_plain(*args),
+                               rtol=0, atol=0)
+
+
+def test_scalar_kernel_runs_on_cuda_tensors_only():
+    """The scalar K5 is a timing yardstick: it has no CPU path and counts
+    nothing when it refuses."""
+    args = [torch.as_tensor(a) for a in _inputs(4, 8, 6, 2, seed=5)]
+    before = _contract_scalar.launches
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        _contract_scalar(*args)
+    assert _contract_scalar.launches == before

@@ -153,15 +153,10 @@ def test_egcl_tc_backward_refuses_large_n(cuda):
                                   cd=torch.bfloat16)
 
 
-@pytest.mark.parametrize("N,F,T,B,integer", [
-    (55, 32, 165, 8, False),  # LJ55: 11 tiles of 16 tangents, the last one of 5
-    (13, 16, 39, 5, False),
-    (7, 32, 21, 3, True),  # near-integer inputs are exact in bf16: indexing only
-])
-def test_g_op_kernel_matches_plain(cuda, N, F, T, B, integer):
-    g = torch.Generator(device=cuda).manual_seed(N)
-    rand = lambda *s: torch.rand(s, generator=g, device=cuda)
-    randn = lambda *s: torch.randn(s, generator=g, device=cuda)
+def _g_op_inputs(device, N, F, T, B, integer=False):
+    g = torch.Generator(device=device).manual_seed(N)
+    rand = lambda *s: torch.rand(s, generator=g, device=device)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
     if integer:
         draw = lambda *s: torch.round(randn(*s) * 2)
         sp1, sp2, att = draw(B, N, N, F), draw(B, N, N, F), draw(B, N, N)
@@ -170,11 +165,32 @@ def test_g_op_kernel_matches_plain(cuda, N, F, T, B, integer):
         sp1, sp2, att = rand(B, N, N, F), rand(B, N, N, F), rand(B, N, N)
         satq, m_pre = randn(B, N, N, F) * 0.1, randn(B, N, N, F)
         w2, bv = randn(F, F) / F ** 0.5, randn(T, B, N, F) * 0.5
-    mask = 1.0 - torch.eye(N, device=cuda)
-    args = (sp1, sp2, att * mask, satq * mask[:, :, None], m_pre, w2, bv)
-    before = g_op.g_operator_contract.launches
+    mask = 1.0 - torch.eye(N, device=device)
+    return sp1, sp2, att * mask, satq * mask[:, :, None], m_pre, w2, bv
+
+
+@pytest.mark.parametrize("N,F,T,B,integer", [
+    (55, 32, 165, 8, False),  # LJ55's shape: 165 of the 168 tangents a product takes
+    (13, 16, 39, 5, False),
+    (7, 32, 21, 3, True),  # near-integer inputs are exact in bf16: indexing only
+    # the tensor-core kernel's edges: N = 64, a block of receivers only
+    # partly inside N (13, 55: its other rows compute and store nothing), one
+    # tangent, a ragged tangent count (37), one chain
+    (64, 32, 37, 1, False),
+    (64, 16, 165, 1, False),
+    (13, 32, 1, 8, False),
+    (55, 16, 37, 8, False),
+    (55, 32, 1, 1, False),
+    (13, 16, 165, 8, False),
+    (55, 32, 165, 4, True),
+    (64, 16, 37, 2, True),
+])
+def test_g_op_kernel_matches_plain(cuda, N, F, T, B, integer):
+    args = _g_op_inputs(cuda, N, F, T, B, integer)
+    before = (g_op.g_operator_contract.launches, g_op._contract_scalar.launches)
     got = g_op.g_operator_contract(*args)
-    assert g_op.g_operator_contract.launches == before + 1
+    assert (g_op.g_operator_contract.launches, g_op._contract_scalar.launches) == (
+        before[0] + 1, before[1])
     ref = g_op.g_operator_contract_plain(*args)
     torch.cuda.synchronize()
     if integer:
@@ -183,6 +199,36 @@ def test_g_op_kernel_matches_plain(cuda, N, F, T, B, integer):
         # the same bf16 roundings of G and bv up to an f32 ulp before rounding; f32 sums
         # over N*F terms in another order
         assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
+
+
+def test_g_op_kernel_is_deterministic(cuda):
+    """One lane writes each output, the sum over senders runs in a fixed
+    order: two launches on the same inputs are bitwise equal."""
+    args = _g_op_inputs(cuda, 55, 32, 165, 8)
+    got, again = g_op.g_operator_contract(*args), g_op.g_operator_contract(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("N,F", [(65, 32), (13, 24)])
+def test_g_op_kernel_refuses_unsupported_shapes(cuda, N, F):
+    args = _g_op_inputs(cuda, N, F, 3, 2)
+    before = g_op.g_operator_contract.launches
+    with pytest.raises(ValueError, match="N <= 64"):
+        g_op.g_operator_contract(*args)
+    assert g_op.g_operator_contract.launches == before
+
+
+def test_g_op_scalar_kernel_matches_plain(cuda):
+    """The scalar K5, kept as the yardstick, counts on its own counter."""
+    args = _g_op_inputs(cuda, 55, 32, 37, 4)
+    before = (g_op.g_operator_contract.launches, g_op._contract_scalar.launches)
+    got = g_op._contract_scalar(*args)
+    assert (g_op.g_operator_contract.launches, g_op._contract_scalar.launches) == (
+        before[0], before[1] + 1)
+    ref = g_op.g_operator_contract_plain(*args)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 2e-3 * ref.abs().max()
 
 
 @pytest.mark.parametrize("F,N,Tc,tc,cd,tol", [
