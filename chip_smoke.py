@@ -33,11 +33,14 @@ Phases, each printing lines, each failing the run on disagreement:
      launch, a chunk of 256 chains x 165 tangents: compared (the scalar K5
      too), launched twice for a bitwise-equal result, and timed in turns with
      the scalar K5 beside a torch.bmm yardstick;
-  7. K4 (EGCL layer tangent) against its plain version: each layer in f32 and
-     bf16 on the tangents the trace gives it, 64 chains x 64 tangents; then
-     the whole forward-mode trace against the edge-operator trace; then
-     compared at the main path's launches, 256 chains x a super-chunk of 64
-     tangents and x the ragged last one of 37, and timed at the first;
+  7. K4 (EGCL layer tangent) against its plain version: each layer in f32
+     (the scalar K4) and bf16 (the tensor-core K4) on the tangents the trace
+     gives it, 64 chains x 64 tangents; then the whole forward-mode trace
+     against the edge-operator trace; then the tensor-core K4 compared at the
+     main path's launches, 256 chains x a super-chunk of 64 tangents and x
+     the ragged last one of 37, launched twice for a bitwise-equal result at
+     the first and timed there in turns with the scalar K4 in bf16, the
+     scalar K4 also timed in f32;
   8. end-to-end wiring of the exact divergence: 64 chains x 8 steps with the
      weights accumulating in every step and resampling never firing, same
      draws: the K5 route and the K4 route each against the materialized-G
@@ -46,17 +49,19 @@ Phases, each printing lines, each failing the run on disagreement:
      K2 and K3, and the bf16 runs the scalar K2 never; no run the scalar
      K5); then the trace by the three routes on a full-width backbone with
      random weights, where the G-operator term is not as small as on the
-     trained ones;
+     trained ones; the bf16 runs of the K4 route must launch the tensor-core
+     K4 alone, the f32 runs the scalar K4 alone;
   9. the second main path, timed: quadrature_k10 of bench.py (exact
      divergence every 10th step, resampling every step, chain chunks of 256)
      at 2048 chains x 100 steps once per route, each after a 10-step warm-up,
      the tensor-core K2 and K4/K5 counters must move, the K5 route must
      launch the tensor-core K5 once per evaluation and chain chunk (80 times)
-     and the scalar K5 never; then exact (every step) at 256 chains x 100
-     steps per kernel route;
+     and the scalar K5 never, the K4 route the tensor-core K4 nine times per
+     evaluation and chain chunk (720 times) and the scalar K4 never; then
+     exact (every step) at 256 chains x 100 steps per kernel route;
  10. the exact-divergence quality run: quadrature_k10 on the faster kernel
-     route, 512 chains x 400 steps, final resample, 30 MALA steps, both arms
-     of the gate as in phase 5.
+     route, 512 chains x 400 steps, final resample, 30 MALA steps; both arms
+     of the gate of phase 5 must pass.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
@@ -84,6 +89,8 @@ PEAK_BF16 = 989e12
 # special-function units (exponential, reciprocal, tanh): 16 results per
 # clock per SM, 132 SMs, at the H100 SXM's 1.98 GHz boost clock
 PEAK_SFU = 132 * 16 * 1.98e9
+# FP32 pipes: 128 lanes per SM, one operation (an FMA counts as one) a clock
+PEAK_FP32_OPS = 132 * 128 * 1.98e9
 
 # max |kernel − plain| / max |plain| allowed, per output tensor
 TOL_LJ = 2e-4  # f32 sums over 54 neighbours in another order; autograd vs closed-form force
@@ -123,11 +130,12 @@ def cuda_ms(fn, reps=20, warmup=3):
     return s.elapsed_time(e) / reps
 
 
-def bound_ms(n_bytes, n_ops, peak_ops, sfu_ops=0):
+def bound_ms(n_bytes, n_ops, peak_ops, sfu_ops=0, fp32_ops=0):
     """The least time (ms) and what sets it: bytes over the memory rate, or
-    operations over their peak, the SFU operations (sigmoids, tanhs) over
-    theirs."""
-    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, max(n_ops / peak_ops, sfu_ops / PEAK_SFU) * 1e3
+    operations over their peak, the SFU operations (sigmoids, tanhs) and the
+    elementwise f32 operations around the products over theirs."""
+    t_b = n_bytes / PEAK_BYTES * 1e3
+    t_o = max(n_ops / peak_ops, sfu_ops / PEAK_SFU, fp32_ops / PEAK_FP32_OPS) * 1e3
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -451,6 +459,17 @@ def phase_g_op(wl, data):
             dict(max_abs_err=ab_s, ms=ms_s, **common))
 
 
+def tangent_fp32_ops(n_edge_tangents, F):
+    """The f32 operations of the tangent map around its products, per the
+    formula of ops/egnn_tangent.py:layer_tangent, an FMA counting as one:
+    per edge, tangent and feature dz1 (dsrc + ddst + c w_r + e w_e: 3), the
+    sp1 and sp2 scales (1 each), dm = dm_pre att + m_pre datt (2), the dl and
+    dcm row sums (1 each, silu'(cz) w_c2 taken once per edge) and dagg (1);
+    per edge and tangent c and e (6 each), datt (1), da and dw (3) and the
+    dx sums (sum_j dw_ij, sum_j dw_ij x_j + w_ij dx_j: 7)."""
+    return n_edge_tangents * (10 * F + 24)
+
+
 def phase_tangent(wl, wl32, data):
     import torch
 
@@ -462,6 +481,7 @@ def phase_tangent(wl, wl32, data):
     N, F, Tc = 55, 32, 64
     bb = wl.score.backbone
     base = torch.as_tensor(data, device="cuda")
+    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
 
     def states(B):
         x_flat = base[:B] + 0.01 * torch.randn(B, 165, generator=gen, device="cuda")
@@ -473,30 +493,36 @@ def phase_tangent(wl, wl32, data):
         return c_noise, x_in, h, xs, ea, basis
 
     c_noise, x_in, h0, xs, ea, basis = states(64)
-    worst_abs = 0.0
-    timed = None
+    worst = {"f32": 0.0, "bf16": 0.0}
+    timed = {}
     for cd_name, cd, tol in (("f32", torch.float32, TOL_F32), ("bf16", torch.bfloat16, TOL_BF16)):
         h, x = h0, xs
         dh = torch.zeros(64, Tc, N, F, device="cuda")
         dx = basis[None].expand(64, -1, -1, -1).contiguous()
+        tc = cd == torch.bfloat16
         for li, layer in enumerate(bb.layers):
             cfg = dict(layer.cfg, cd=cd)
             w = layer.weights()
             packed = el.pack_weights(w, cd).cuda()
-            got = et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w, packed=packed, **cfg)
+            ptc = el.pack_weights_tc(w).cuda() if tc else None
+            before = counts()
+            got = et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w, packed=packed,
+                                        packed_tc=ptc, **cfg)
+            if counts() != (before[0] + (not tc), before[1] + tc):
+                fail(f"the {cd_name} layer tangent did not launch the "
+                     f"{'tensor-core' if tc else 'scalar'} K4 alone")
             with torch.no_grad():
                 ref = et.layer_tangent(h, x, ea, xs, basis, dh, dx, w, **cfg)
                 h_next, x_next = el.layer_step(h, x, ea, w, **cfg)
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip(got, ref)]
-            if cd_name == "bf16":
-                worst_abs = max([worst_abs] + [e[1] for e in errs])
-            print(f"[phase 7] K4 {cd_name} layer {li} B=64 Tc={Tc}: rel err dh_out "
-                  f"{errs[0][0]:.2e}, dx_out {errs[1][0]:.2e} (tol {tol})")
+            worst[cd_name] = max([worst[cd_name]] + [e[1] for e in errs])
+            print(f"[phase 7] {'tensor-core' if tc else 'scalar'} K4 {cd_name} layer {li} B=64 "
+                  f"Tc={Tc}: rel err dh_out {errs[0][0]:.2e}, dx_out {errs[1][0]:.2e} (tol {tol})")
             if not max(e[0] for e in errs) <= tol:
                 fail(f"K4 disagrees with its plain version ({cd_name}, layer {li})")
-            if cd_name == "bf16" and li == 1:
-                timed = (cfg, w, packed)
+            if li == 1:
+                timed[cd_name] = (cfg, w, packed, ptc)
             h, x, (dh, dx) = h_next, x_next, ref
 
     # the whole trace: forward mode through K2 + K4 against the edge operators
@@ -512,15 +538,18 @@ def phase_tangent(wl, wl32, data):
 
     # the main path's launches: 256 chains, layer 1 with the tangents the trace
     # gives it (layer 0's output), for a full super-chunk of 64 tangents and
-    # for the ragged last one of 37; compared, and the full one timed
+    # for the ragged last one of 37; compared, and the full one repeated and timed
     B = 256
     _, _, h0, xs, ea, _ = states(B)
-    cfg, w, packed = timed
+    cfg, w, packed, ptc = timed["bf16"]
+    cfg32, _, packed32, _ = timed["f32"]
     l0 = bb.layers[0]
-    h, x = el.egnn_layer_forward(h0, xs, ea, l0.weights(), packed=l0.packed(h0.device), **l0.cfg)
+    dev = h0.device
+    h, x = el.egnn_layer_forward(h0, xs, ea, l0.weights(), packed=l0.packed(dev),
+                                 packed_tc=l0.packed(dev, tc=True), **l0.cfg)
     eye = torch.eye(165, device="cuda").reshape(165, N, 3)
 
-    def plain_all(basis, dh, dx):  # 64 chains at a time: it materializes (B,Tc,N,N,F)
+    def plain_all(basis, dh, dx, cfg):  # 64 chains at a time: it materializes (B,Tc,N,N,F)
         with torch.no_grad():
             outs = [et.layer_tangent(h[s0:s0 + 64], x[s0:s0 + 64], ea[s0:s0 + 64],
                                      xs[s0:s0 + 64], basis, dh[s0:s0 + 64], dx[s0:s0 + 64],
@@ -532,31 +561,66 @@ def phase_tangent(wl, wl32, data):
         dh = torch.zeros(B, n_t, N, F, device="cuda")
         dx = basis[None].expand(B, -1, -1, -1).contiguous()
         dh, dx = et.egnn_layer_tangent(h0, xs, ea, xs, basis, dh, dx, l0.weights(),
-                                       packed=l0.packed(h0.device), **l0.cfg)
-        run = lambda: et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w, packed=packed, **cfg)
-        got, ref = run(), plain_all(basis, dh, dx)
+                                       packed=l0.packed(dev), packed_tc=l0.packed(dev, tc=True),
+                                       **l0.cfg)
+        run = lambda: et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w, packed=packed,
+                                            packed_tc=ptc, **cfg)
+        before = counts()
+        got, ref = run(), plain_all(basis, dh, dx, cfg)
         torch.cuda.synchronize()
+        if counts() != (before[0], before[1] + 1):
+            fail("the bf16 layer tangent did not launch the tensor-core K4 alone")
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        worst_abs = max([worst_abs] + [e[1] for e in errs])
-        print(f"[phase 7] K4 bf16 layer 1 B={B} Tc={n_t} (the main path's launch): rel err "
-              f"dh_out {errs[0][0]:.2e}, dx_out {errs[1][0]:.2e} (tol {TOL_BF16})")
+        worst["bf16"] = max([worst["bf16"]] + [e[1] for e in errs])
+        print(f"[phase 7] tensor-core K4 bf16 layer 1 B={B} Tc={n_t} (the main path's launch): "
+              f"rel err dh_out {errs[0][0]:.2e}, dx_out {errs[1][0]:.2e} (tol {TOL_BF16})")
         if not max(e[0] for e in errs) <= TOL_BF16:
             fail(f"K4 disagrees with its plain version at the main path's shape (Tc={n_t})")
-        del got, ref
-        if n_t == Tc:
-            ms = cuda_ms(run, reps=5, warmup=1)
-            plain = cuda_ms(lambda: plain_all(basis, dh, dx), reps=1, warmup=1)
+        del ref
+        if n_t != Tc:
+            continue
+        again = run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"[phase 7] tensor-core K4 B={B} Tc={Tc}: a second launch "
+              f"{'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail("two launches of the tensor-core K4 on the same inputs differ")
+        del got, again
+        # in turns: scalar, tensor cores, tensor cores, scalar (both in bf16;
+        # the scalar K4 at the 8 tangents a block it ran the route with before)
+        scalar = lambda: et._tangent_scalar(h, x, ea, xs, basis, dh, dx, w, packed,
+                                            tangent_chunk=8, **cfg)
+        turns = [cuda_ms(f, reps=5, warmup=1) for f in (scalar, run, run, scalar)]
+        ms, ms_s = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain = cuda_ms(lambda: plain_all(basis, dh, dx, cfg), reps=1, warmup=1)
+        # the scalar K4 in f32, its dtype of record, on the same inputs
+        ms32 = cuda_ms(lambda: et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w,
+                                                     packed=packed32, **cfg32), reps=5, warmup=1)
+        plain32 = cuda_ms(lambda: plain_all(basis, dh, dx, cfg32), reps=1, warmup=1)
     E = B * N * (N - 1)
     # the two edge products per tangent, the primal's once, and the node
-    # products (src, dst, node MLP) per tangent, on bf16 operands
+    # products (src, dst, node MLP) per tangent; the f32 work around them
     ops = Tc * E * 4 * F * F + E * 4 * F * F + (Tc + 1) * B * N * 10 * F * F
+    ew = tangent_fp32_ops(Tc * E, F)
     n_bytes = 4 * (2 * B * Tc * N * (F + 3) + B * N * (F + 6) + B * N * N + Tc * N * 3
                    + packed.numel())
-    bnd, by = bound_ms(n_bytes, ops, PEAK_BF16)
-    print(f"[phase 7] K4 bf16 B={B} Tc={Tc} layer 1: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-          f"bound {bnd:.4f} ms ({by}); f32-scalar bound {ops / PEAK_F32 * 1e3:.3f} ms")
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=None)
+    bnd, by = bound_ms(n_bytes, ops, PEAK_BF16, fp32_ops=ew)
+    bnd32, by32 = bound_ms(n_bytes, ops, PEAK_F32, fp32_ops=ew)
+    print(f"[phase 7] bound of K4 B={B} Tc={Tc}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, "
+          f"products {ops / PEAK_BF16 * 1e3:.4f} ms on bf16 tensor cores "
+          f"({ops / PEAK_F32 * 1e3:.4f} ms at the f32 rate), f32 elementwise "
+          f"{ew / PEAK_FP32_OPS * 1e3:.4f} ms ({ew:.3e} operations at 128/clk/SM, 1.98 GHz) "
+          f"-> bf16 {bnd:.4f} ms ({by}), f32 {bnd32:.4f} ms ({by32})")
+    print(f"[phase 7] K4 bf16 B={B} Tc={Tc} layer 1: tensor-core kernel {ms:.4f} ms, in turns with "
+          f"the scalar K4 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar); "
+          f"plain {plain:.3f} ms; the scalar K4 in f32 {ms32:.4f} ms (plain {plain32:.3f})")
+    if not ms < ms_s:
+        fail("the tensor-core K4 is not faster than the scalar K4 at the main path's launch")
+    return (dict(max_abs_err=worst["bf16"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                 library_ms=None),
+            dict(max_abs_err=worst["f32"], ms=ms32, plain_ms=plain32, bound_ms=bnd32,
+                 bound_by=by32, library_ms=None))
 
 
 def phase_routes_random_weights(wl, data):
@@ -640,7 +704,7 @@ def phase_wiring(wl, wl32, data, kernels):
     x1 = x1 + math.sqrt(wl.noise.h(t0)) * torch.randn(x1.shape, generator=gen, device="cuda")
     base = exact_cfg(num_integration_steps=n, end_resampling_step=n, time_range=t0,
                      ess_resampling_threshold=0.0, divergence_chunk_size=64)
-    scalar = {"bf16": [0, 0], "f32": [0, 0]}  # launches of the scalar K2 and K3 by backbone
+    scalar = {"bf16": [0, 0, 0], "f32": [0, 0, 0]}  # of the scalar K2, K3 and K4 by backbone
     for name, load in (("bf16", wl), ("f32", wl32)):
         res = {}
         for route, kw in ROUTES.items():
@@ -652,9 +716,15 @@ def phase_wiring(wl, wl32, data, kernels):
             counts = {f.__name__: f.launches for f in kernels}
             scalar[name][0] += counts["egnn_layer_forward"]
             scalar[name][1] += counts["egnn_layer_backward"]
-            want = {"g_kernel": "g_operator_contract", "tangent_kernel": "egnn_layer_tangent"}
+            scalar[name][2] += counts["egnn_layer_tangent"]
+            # the K4 route: the tensor-core K4 with the bf16 backbone, the scalar with the f32
+            k4, other = (("egnn_layer_tangent_tc", "egnn_layer_tangent") if name == "bf16" else
+                         ("egnn_layer_tangent", "egnn_layer_tangent_tc"))
+            want = {"g_kernel": "g_operator_contract", "tangent_kernel": k4}
             if route in want and counts[want[route]] == 0:
                 fail(f"the {route} route did not launch {want[route]}")
+            if counts[other] or (route != "tangent_kernel" and counts[k4]):
+                fail(f"the {route} route ({name} backbone) launched a K4 it should not")
             if counts["_contract_scalar"]:
                 fail(f"the {route} route ({name} backbone) launched the scalar K5")
         ref = res["materialized"]
@@ -677,11 +747,11 @@ def phase_wiring(wl, wl32, data, kernels):
             if not rel <= tol:
                 fail(f"the {route} route's log-weights disagree with the materialized "
                      f"route's ({name})")
-    print(f"[phase 8] launches of the scalar K2, K3: f32 backbone's runs {scalar['f32']}, "
+    print(f"[phase 8] launches of the scalar K2, K3, K4: f32 backbone's runs {scalar['f32']}, "
           f"bf16 backbone's runs {scalar['bf16']}")
     if 0 in scalar["f32"]:
-        fail("the f32 wiring runs did not launch the scalar K2 and K3")
-    if scalar["bf16"] != [0, 0]:
+        fail("the f32 wiring runs did not launch the scalar K2, K3 and K4")
+    if scalar["bf16"] != [0, 0, 0]:
         fail("the bf16 wiring runs launched a scalar EGCL kernel")
     return scalar["f32"]
 
@@ -713,8 +783,19 @@ def timed_exact_run(wl, x1, cfg, label, kernels, profile):
           f"unique ancestors after the last step {int(res.num_unique[-1])}")
     if counts["egnn_layer_forward_tc"] == 0 or counts["egnn_layer_forward"] != 0:
         fail(f"{label} did not run the tensor-core EGCL forward kernel alone")
-    if counts["_contract_scalar"]:
-        fail(f"{label} launched the scalar K5")
+    if counts["_contract_scalar"] or counts["egnn_layer_tangent"]:
+        fail(f"{label} launched the scalar K5 or the scalar K4")
+    if cfg.divergence_tangent_kernel:
+        # the tensor-core K4 per divergence evaluation and chain chunk: 3
+        # layers x 3 super-chunks of tangents (64, 64, 37)
+        want = (9 * len(range(0, n_steps, cfg.divergence_update_interval))
+                * -(-n_chains // cfg.divergence_chunk_size))
+        print(f"[phase 9] {label}: tensor-core K4 launched {counts['egnn_layer_tangent_tc']} "
+              f"times ({want} expected), the scalar K4 {counts['egnn_layer_tangent']}")
+        if counts["egnn_layer_tangent_tc"] != want:
+            fail(f"{label} did not launch the tensor-core K4 nine times per evaluation and chunk")
+    elif counts["egnn_layer_tangent_tc"]:
+        fail(f"{label} launched K4 off the K4 route")
     if cfg.divergence_g_kernel:
         # one tensor-core K5 per divergence evaluation and chain chunk
         want = (len(range(0, n_steps, cfg.divergence_update_interval))
@@ -746,8 +827,8 @@ def reset_counts(ops):
 
 # the port's own kernels, by their names in a profile
 OWN_KERNELS = ("egcl_fwd_kernel", "egcl_bwd_kernel", "egcl_fwd_tc_kernel", "egcl_bwd_tc_kernel",
-               "egcl_tan_kernel", "g_op_kernel", "g_op_tc_kernel", "pack_panel_kernel",
-               "lj_kernel")
+               "egcl_tan_kernel", "egcl_tan_tc_kernel", "g_op_kernel", "g_op_tc_kernel",
+               "pack_panel_kernel", "lj_kernel")
 
 
 def profile_main_path(wl, x1, cfg, label, plain_top=False):
@@ -792,7 +873,7 @@ def quality(wl, data, seed, make_cfg=None, phase=5, label="hutch_ess_k10"):
     """bench.py's quality run (bench.py:303-345, 505-519): 512 chains x 400
     steps of the mode ``make_cfg`` builds (hutch_ess_k10 by default), final
     resample at step 360, 30 adaptive MALA steps; returns (energy W2 against
-    ground truth, sigma_GT)."""
+    ground truth, sigma_GT, whether the two arms of the gate pass)."""
     import numpy as np
     import torch
 
@@ -834,7 +915,7 @@ def quality(wl, data, seed, make_cfg=None, phase=5, label="hutch_ess_k10"):
           f"{int(nu[-1])}; MALA acceptance first/last {acc[0]:.3f}/{acc[-1]:.3f}; "
           f"lowest log-prob {e.min():.1f} (ground truth {e_data.min():.1f}), "
           f"{int((e < e_data.min()).sum())} samples below the ground truth's lowest")
-    return w2_gt, spread
+    return w2_gt, spread, (w2_gt < gt_bound, w2_ex < 0.5 * spread)
 
 
 def main():
@@ -858,7 +939,7 @@ def main():
     from pita_torch.ops import _build
     from pita_torch.ops.egnn_layer import (egnn_layer_backward, egnn_layer_backward_tc,
                                            egnn_layer_forward, egnn_layer_forward_tc)
-    from pita_torch.ops.egnn_tangent import egnn_layer_tangent
+    from pita_torch.ops.egnn_tangent import egnn_layer_tangent, egnn_layer_tangent_tc
     from pita_torch.ops.g_op import _contract_scalar, g_operator_contract
     from pita_torch.ops.lj import lj_log_prob_and_force
     from pita_torch.sampler import integrate_sde
@@ -880,14 +961,14 @@ def main():
     k1 = phase_lj(data)
     eg = phase_egcl(wl, data)
     k5, k5_scalar = phase_g_op(wl, data)
-    k4 = phase_tangent(wl, wl32, data)
+    k4, k4_scalar = phase_tangent(wl, wl32, data)
     if "--kernels-only" in sys.argv[1:]:  # quick check of a kernel change
         return 0
 
     # phase 4: the first main path, timed
     kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
                egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
-               g_operator_contract, _contract_scalar)
+               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar)
     gen = torch.Generator("cuda").manual_seed(0)
     n_chains, n_steps = 2048, 100
     x1 = torch.randn(n_chains, 165, generator=gen, device="cuda") * wl.prior_scale
@@ -928,7 +1009,7 @@ def main():
         n_seeds = int(sys.argv[sys.argv.index("--quality-seeds") + 1])
     for seed in range(n_seeds):
         reset_counts(kernels)
-        w2_gt, spread = quality(wl, data, seed)
+        w2_gt, spread, _ = quality(wl, data, seed)
         q_counts = {f.__name__: f.launches for f in kernels}
         print(f"[phase 5] launches {q_counts}")
         if q_counts["lj_log_prob_and_force"] == 0:
@@ -937,7 +1018,7 @@ def main():
             fail(f"energy W2 against ground truth {w2_gt:.3f} > 2 sigma_GT {2 * spread:.3f}")
 
     # phase 8: every route of the exact divergence gives the same weights
-    k2_f32_launches, k3_f32_launches = phase_wiring(wl, wl32, data, kernels)
+    k2_f32_launches, k3_f32_launches, k4_f32_launches = phase_wiring(wl, wl32, data, kernels)
     phase_routes_random_weights(wl, data)
 
     # phase 9: the second main path, timed, once per route
@@ -952,26 +1033,29 @@ def main():
         _, c = timed_exact_run(wl, x1s, q10.replace(divergence_update_interval=1,
                                                     **ROUTES[route]),
                                f"exact ({route})", kernels, False)
-        if c["g_operator_contract" if route == "g_kernel" else "egnn_layer_tangent"] == 0:
+        if c["g_operator_contract" if route == "g_kernel" else "egnn_layer_tangent_tc"] == 0:
             fail(f"exact ({route}) did not launch its kernel")
     k5_launches = ex_counts["g_kernel"]["g_operator_contract"]
-    k4_launches = ex_counts["tangent_kernel"]["egnn_layer_tangent"]
+    k4_launches = ex_counts["tangent_kernel"]["egnn_layer_tangent_tc"]
     if k5_launches == 0 or k4_launches == 0:
         fail("the exact-divergence main path did not launch K4/K5")
-    if ex_counts["materialized"]["g_operator_contract"] or \
-            ex_counts["materialized"]["egnn_layer_tangent"]:
+    if any(ex_counts["materialized"][k] for k in ("g_operator_contract", "egnn_layer_tangent",
+                                                  "egnn_layer_tangent_tc")):
         fail("the materialized route launched a divergence kernel")
 
     # phase 10: quality of the exact-divergence population, on the faster kernel route
     fast = max(("g_kernel", "tangent_kernel"), key=rates.get)
     reset_counts(kernels)
-    w2_ex, spread = quality(wl, data, 0, phase=10, label=f"quadrature_k10 ({fast})",
-                            make_cfg=lambda **kw: exact_cfg(divergence_update_interval=10,
-                                                            **ROUTES[fast], **kw))
+    w2_ex, spread, arms = quality(wl, data, 0, phase=10, label=f"quadrature_k10 ({fast})",
+                                  make_cfg=lambda **kw: exact_cfg(divergence_update_interval=10,
+                                                                  **ROUTES[fast], **kw))
     print(f"[phase 10] launches { {f.__name__: f.launches for f in kernels} }")
     if w2_ex > 2 * spread:
         fail(f"exact-divergence energy W2 against ground truth {w2_ex:.3f} > 2 sigma_GT "
              f"{2 * spread:.3f}")
+    if not all(arms):
+        fail(f"the exact-divergence quality run misses an arm of the gate (ground truth, exact "
+             f"population: {arms})")
 
     src = "pita_torch/csrc/"
     line = {"kernels": [
@@ -994,8 +1078,12 @@ def main():
         dict(name="egcl_backward", route="cuda", source=src + "egnn_layer.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:342", launches=k3_f32_launches,
              max_abs_err=eg["f32"][1], library_ms=None, **eg["bwd_f32"]),
-        dict(name="egcl_tangent", route="cuda", source=src + "egnn_tangent.cu",
+        dict(name="egcl_tangent_tc", route="cuda", source=src + "egnn_tangent_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_launches, **k4),
+        # the f32 K4: launches from the f32 backbone's runs of phase 8
+        dict(name="egcl_tangent", route="cuda", source=src + "egnn_tangent.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_f32_launches,
+             **k4_scalar),
         dict(name="g_operator_contract_tc", route="cuda", source=src + "g_op.cu",
              replaces="pita_tpu/ops/pallas/g_op.py:133", launches=k5_launches, **k5),
         # the scalar K5, timed as the yardstick; phases 8 and 9 require that

@@ -1,7 +1,8 @@
 // Shared device code of the EGCL layer kernels: the packed weight layout, the
 // scalar helpers and the per-edge chain of pita_tpu/ops/pallas/egnn_fwd.py:85-136
-// _layer_step. Included by egnn_layer.cu (K2 forward, K3 VJP) and
-// egnn_tangent.cu (K4 tangent).
+// _layer_step. Included by egnn_layer.cu (K2 forward, K3 VJP), egnn_tangent.cu
+// (K4 tangent) and the tensor-core kernels egnn_layer_tc.cu and
+// egnn_tangent_tc.cu, which also share TcOff, their bf16 weight layout.
 
 #pragma once
 
@@ -47,6 +48,33 @@ __host__ __device__ inline WOff woff(int F) {
   return o;
 }
 
+// Offsets (in bf16 elements) of the matrices of the bf16 weight buffer. Each
+// is the transpose M^T of the right operand M of a product Y = A M, stored
+// row by row with K + 8 elements a row (K = rows of M), so that a lane's B
+// fragment is one 32-bit load and a warp's loads hit distinct banks.
+// Mirrored by pita_torch/ops/egnn_layer.py:pack_weights_tc.
+struct TcOff {
+  int e2f, c1f, e2b, c1b, sd, n1f, n2b, n1b, sdb, n2f, total;
+};
+
+__host__ __device__ inline TcOff tcoff(int F) {
+  TcOff o;
+  const int r1 = F + 8, r2 = 2 * F + 8;
+  int p = 0;
+  o.e2f = p; p += F * r1;      // M = W_e2 (e2f and c1f adjoin: the edge matrices)
+  o.c1f = p; p += F * r1;      // M = W_c1
+  o.e2b = p; p += F * r1;      // M = W_e2^T
+  o.c1b = p; p += F * r1;      // M = W_c1^T
+  o.sd = p;  p += 2 * F * r1;  // M = [W_src | W_dst]
+  o.n1f = p; p += F * r2;      // M = W_n1
+  o.n2b = p; p += F * r1;      // M = W_n2^T
+  o.n1b = p; p += 2 * F * r1;  // M = W_n1^T
+  o.sdb = p; p += F * r2;      // M = [W_src^T ; W_dst^T]
+  o.n2f = p; p += F * r1;      // M = W_n2 (forward only)
+  o.total = p;
+  return o;
+}
+
 struct Cfg {
   int N, bf16, attention, tanh;
   float coords_range;
@@ -61,6 +89,14 @@ __device__ __forceinline__ float rnd(float v, int bf) {
 __device__ __forceinline__ float sigm(float z) {
   const float e = expf(-fabsf(z));
   return (z >= 0.f ? 1.f : e) / (1.f + e);
+}
+
+// logistic in one SFU operation: sigma(z) = 1/2 + tanh(z/2) / 2; saturates
+// for large |z|, so it is overflow-safe
+__device__ __forceinline__ float sigm_tanh(float z) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(0.5f * z));
+  return fmaf(0.5f, y, 0.5f);
 }
 
 __device__ __forceinline__ float silu(float z) { return z * sigm(z); }

@@ -1,7 +1,8 @@
 // The EGCL layer on tensor cores in bf16 compute, sm_90a: K3, the VJP with
 // respect to (h, x, edge_attr) (this note), and K2, the forward (its note is
-// at egcl_fwd_tc_kernel below). Both share the mma helpers and the bf16
-// weight buffer of this file.
+// at egcl_fwd_tc_kernel below). Both take the tile helpers of mma_bf16.cuh
+// and the bf16 weight buffer of egnn_common.cuh (TcOff), as K4's
+// egnn_tangent_tc.cu does.
 //
 // K3 replaces the Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:169
 // _layer_bwd_kernel (called through _layer_bwd_call, egnn_fwd.py:335) for
@@ -59,33 +60,6 @@ constexpr int kTcMaxN = 16 * kTcWarps;  // one 16-sender tile per warp
 // (51.8 KB at F=32, N=55) still fits four times
 constexpr int kTcMinBlocks = 4;
 
-// Offsets (in bf16 elements) of the matrices of the bf16 weight buffer. Each
-// is the transpose M^T of the right operand M of a product Y = A M, stored
-// row by row with K + 8 elements a row (K = rows of M), so that a lane's B
-// fragment is one 32-bit load and a warp's loads hit distinct banks.
-// Mirrored by pita_torch/ops/egnn_layer.py:pack_weights_tc.
-struct TcOff {
-  int e2f, c1f, e2b, c1b, sd, n1f, n2b, n1b, sdb, n2f, total;
-};
-
-__host__ __device__ inline TcOff tcoff(int F) {
-  TcOff o;
-  const int r1 = F + 8, r2 = 2 * F + 8;
-  int p = 0;
-  o.e2f = p; p += F * r1;      // M = W_e2 (e2f and c1f adjoin: the edge matrices)
-  o.c1f = p; p += F * r1;      // M = W_c1
-  o.e2b = p; p += F * r1;      // M = W_e2^T
-  o.c1b = p; p += F * r1;      // M = W_c1^T
-  o.sd = p;  p += 2 * F * r1;  // M = [W_src | W_dst]
-  o.n1f = p; p += F * r2;      // M = W_n1
-  o.n2b = p; p += F * r1;      // M = W_n2^T
-  o.n1b = p; p += 2 * F * r1;  // M = W_n1^T
-  o.sdb = p; p += F * r2;      // M = [W_src^T ; W_dst^T]
-  o.n2f = p; p += F * r1;      // M = W_n2 (forward only)
-  o.total = p;
-  return o;
-}
-
 template <int F>
 size_t tc_smem_floats(int N) {
   const int FS = F + 8;
@@ -95,132 +69,6 @@ size_t tc_smem_floats(int N) {
 __device__ __forceinline__ float sigm_fast(float z) {
   const float e = __expf(-fabsf(z));
   return __fdividef(z >= 0.f ? 1.f : e, 1.f + e);
-}
-
-// A tile of 16 rows x C columns in registers, in the mma accumulator layout:
-// lane (g = lane/4, t = lane%4) holds rows g (r = 0) and g + 8 (r = 1) at
-// columns col(v) = (v/2)*8 + 2t + v%2, v < C/4.
-__device__ __forceinline__ int col_of(int v, int t) { return (v >> 1) * 8 + 2 * t + (v & 1); }
-
-// A fragments of the K/16 k-steps of a 16 x K tile, rounded to bf16.
-template <int K>
-__device__ __forceinline__ void to_frag(const float (&v)[2][K / 4], uint32_t (*a)[4]) {
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    a[ks][0] = pack2(v[0][4 * ks], v[0][4 * ks + 1]);
-    a[ks][1] = pack2(v[1][4 * ks], v[1][4 * ks + 1]);
-    a[ks][2] = pack2(v[0][4 * ks + 2], v[0][4 * ks + 3]);
-    a[ks][3] = pack2(v[1][4 * ks + 2], v[1][4 * ks + 3]);
-  }
-}
-
-// The same for an f32 operand that must keep its f32 value: hi + lo.
-template <int K>
-__device__ __forceinline__ void to_frag_split(const float (&v)[2][K / 4], uint32_t (*hi)[4],
-                                              uint32_t (*lo)[4]) {
-  float r[2][K / 4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int k = 0; k < K / 4; ++k)
-      r[q][k] = v[q][k] - __bfloat162float(__float2bfloat16(v[q][k]));
-  to_frag<K>(v, hi);
-  to_frag<K>(r, lo);
-}
-
-// acc (16 x NO) += A (16 x K, fragments a) . M, with M^T at mt (rows of K+8)
-template <int K, int NO>
-__device__ __forceinline__ void mm(float (&acc)[2][NO / 4], const uint32_t (*a)[4],
-                                   const __nv_bfloat16* mt, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NO / 8; ++nt) {
-    float d[4] = {acc[0][2 * nt], acc[0][2 * nt + 1], acc[1][2 * nt], acc[1][2 * nt + 1]};
-    const __nv_bfloat16* row = mt + (nt * 8 + g) * (K + 8) + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < K / 16; ++ks) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(row + ks * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(row + ks * 16 + 8);
-      mma16816(d, a[ks], b0, b1);
-    }
-    acc[0][2 * nt] = d[0];
-    acc[0][2 * nt + 1] = d[1];
-    acc[1][2 * nt] = d[2];
-    acc[1][2 * nt + 1] = d[3];
-  }
-}
-
-// rows row0 + g + 8r (< nrows, else 0) of a row-major f32 array, C columns
-template <int C>
-__device__ __forceinline__ void load_tile(float (&v)[2][C / 4], const float* base, int ld,
-                                          int row0, int nrows, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-#pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt) {
-      float2 p = make_float2(0.f, 0.f);
-      if (row < nrows) p = *reinterpret_cast<const float2*>(base + row * ld + nt * 8 + 2 * t);
-      v[r][2 * nt] = p.x;
-      v[r][2 * nt + 1] = p.y;
-    }
-  }
-}
-
-// columns [c0, c0 + C) of a 16 x * tile into rows row0 + g + 8r < nrows
-template <int C, int CT>
-__device__ __forceinline__ void store_tile(const float (&v)[2][CT / 4], int c0, float* base,
-                                           int ld, int row0, int nrows, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= nrows) continue;
-#pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt)
-      *reinterpret_cast<float2*>(base + row * ld + nt * 8 + 2 * t) =
-          make_float2(v[r][c0 / 4 + 2 * nt], v[r][c0 / 4 + 2 * nt + 1]);
-  }
-}
-
-// sum over the quad (the 4 lanes that share a tile row)
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// one level of a reduce-scatter over lanes lane ^ m: keep half the values
-template <int H>
-__device__ __forceinline__ void halve(float* p, int lane, int m, int& base) {
-  const bool up = lane & m;
-#pragma unroll
-  for (int k = 0; k < H; ++k) {
-    const float send = up ? p[k] : p[k + H];
-    const float keep = up ? p[k + H] : p[k];
-    p[k] = keep + __shfl_xor_sync(0xffffffffu, send, m);
-  }
-  if (up) base += H;
-}
-
-// Column sums of a tile row-pair p[v] (already summed over the lane's two
-// rows) over the 8 row groups: returns one total, of column col_of(vi, t);
-// for F = 16 lanes lane and lane ^ 4 hold the same one (owner: lane & 4 == 0).
-template <int V>
-__device__ __forceinline__ float col_sum(float (&p)[V], int lane, int& vi) {
-  int base = 0;
-  if constexpr (V == 8) {
-    halve<4>(p, lane, 16, base);
-    halve<2>(p, lane, 8, base);
-    halve<1>(p, lane, 4, base);
-  } else {
-    static_assert(V == 4, "F must be 16 or 32");
-    halve<2>(p, lane, 16, base);
-    halve<1>(p, lane, 8, base);
-    p[0] += __shfl_xor_sync(0xffffffffu, p[0], 4);
-  }
-  vi = base;
-  return p[0];
 }
 
 struct Smem {
@@ -693,14 +541,6 @@ int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* 
 //    diagonal runs finite values and is masked out of every sum.
 
 constexpr int kFwdMinBlocks = 6;
-
-// logistic in one SFU operation: sigma(z) = 1/2 + tanh(z/2) / 2; saturates
-// for large |z|, so it is overflow-safe
-__device__ __forceinline__ float sigm_tanh(float z) {
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(0.5f * z));
-  return fmaf(0.5f, y, 0.5f);
-}
 
 template <int F>
 size_t fwd_tc_smem_bytes(int N) {

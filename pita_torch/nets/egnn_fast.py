@@ -335,7 +335,7 @@ def supports_fast_divergence(backbone) -> bool:
 @torch.no_grad()
 def score_divergence_fast(score_wrapper, ht, x, beta, tangent_chunk: int = None,
                           chain_chunk: int = None, tangent_kernel: bool = False,
-                          kernel_tangent_chunk: int = 8, g_kernel: bool = False):
+                          kernel_tangent_chunk: int = 16, g_kernel: bool = False):
     """div_x score(x) for an EGNN-backed ScoreWrapper, exact.
 
     Chain rule through the EDM preconditioning (precondition.py):

@@ -1,10 +1,14 @@
 """One EGCL layer's tangent map (kernel K4) and the forward-mode Jacobian trace.
 
 Counterpart of ``pita_tpu/ops/pallas/egnn_fwd.py``: ``_layer_tan_kernel``
-(:195-239, called through ``_layer_tan_call`` :360) is the kernel of
-``pita_torch/csrc/egnn_tangent.cu`` (its header says what bounds it on the
-H100 and what its design does about that), ``egnn_jacobian_trace_pallas``
-(:501-559) is ``egnn_jacobian_trace_fused`` here.
+(:195-239, called through ``_layer_tan_call`` :360) has two kernels here,
+chosen by the compute dtype as K2's and K3's are: bf16 runs the tensor-core
+kernel of ``pita_torch/csrc/egnn_tangent_tc.cu`` (``egnn_layer_tangent_tc``),
+f32 the scalar kernel of ``pita_torch/csrc/egnn_tangent.cu``, which stays the
+kernel of record for f32 (tensor cores would change f32 results). Each
+source's header says what bounds it on the H100 and what its design does
+about that. ``egnn_jacobian_trace_pallas`` (:501-559) is
+``egnn_jacobian_trace_fused`` here.
 
 The layer of ``pita_torch.ops.egnn_layer.layer_step`` is linearized at its
 primal inputs (h, x, edge_attr) and a chunk of tangents (dh, dx, dea) pushed
@@ -28,8 +32,15 @@ import functools
 import torch
 
 from pita_torch.ops import _build
-from pita_torch.ops.egnn_layer import (_kernel_args, egnn_layer_forward, layer_step, pack_weights,
+from pita_torch.ops.egnn_layer import (_check_bf16, _kernel_args, _tc_launch_args,
+                                       egnn_layer_forward, layer_step, pack_weights,
                                        rounded_weights)
+
+# limits of the tensor-core kernel, mirrored from csrc/egnn_tangent_tc.cu
+# (kTanMaxN, kTanMaxTc): four 16-sender tiles; a block's tangents are one
+# m16 tile of its node products
+TC_MAX_N = 64
+TC_MAX_CHUNK = 16
 
 
 def _rt(a, cd):
@@ -99,6 +110,19 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _lib_tc():
+    lib = _build.load("egnn_tangent_tc")
+    for name in ("pita_egcl_tangent_tc_max_n", "pita_egcl_tangent_tc_max_chunk"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.pita_egcl_tangent_tc.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_tangent_tc.restype = ctypes.c_int
+    return lib
+
+
 def _check_inputs(h, x, edge_attr, xs0, basis, dh, dx):
     if h.dim() != 3 or dh.dim() != 4:
         raise ValueError(f"h must be (B, N, F) and dh (B, Tc, N, F); got {tuple(h.shape)}, "
@@ -119,15 +143,30 @@ def _check_inputs(h, x, edge_attr, xs0, basis, dh, dx):
         raise ValueError(f"unsupported device {h.device}")
 
 
-def egnn_layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None,
-                       tangent_chunk: int = 8, **cfg):
+def egnn_layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, packed_tc=None,
+                       tangent_chunk: int = 16, **cfg):
     """One EGCL layer's tangent map for a chunk of tangents (K4); returns
     (dh_out, dx_out).
 
     ``cfg``: attention, tanh, coords_range, cd. ``packed``: the output of
     ``pack_weights(w, cd)`` on the inputs' device, built here if not given.
-    ``tangent_chunk``: tangents one block of the kernel takes in turn.
+    ``tangent_chunk``: tangents one block of the kernel takes. On CUDA the
+    compute dtype picks the kernel: bf16 runs the tensor-core kernel
+    (``egnn_layer_tangent_tc``, ``packed_tc`` from ``pack_weights_tc``), f32
+    the scalar kernel, whose launches this function counts.
     """
+    if cfg.get("cd", torch.float32) == torch.bfloat16:
+        return egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=packed,
+                                     packed_tc=packed_tc, tangent_chunk=tangent_chunk, **cfg)
+    return _tangent_scalar(h, x, edge_attr, xs0, basis, dh, dx, w, packed, tangent_chunk, **cfg)
+
+
+def _tangent_scalar(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, tangent_chunk=16,
+                    **cfg):
+    """The scalar K4 (``egcl_tan_kernel``) in either compute dtype, counted
+    on ``egnn_layer_tangent.launches``: ``egnn_layer_tangent``'s f32 route.
+    bf16 reaches it only when called directly, to time it against the
+    tensor-core kernel. A block takes ``tangent_chunk`` tangents in turn."""
     _check_inputs(h, x, edge_attr, xs0, basis, dh, dx)
     if h.device.type == "cpu":
         with torch.no_grad():
@@ -156,11 +195,58 @@ def egnn_layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None,
     return dh_out, dx_out
 
 
+def _check_tc_limits(N, F, tangent_chunk):
+    if F not in (16, 32) or N > TC_MAX_N:
+        raise ValueError(f"the tensor-core EGCL tangent takes F in (16, 32) and N <= {TC_MAX_N}; "
+                         f"got F={F}, N={N}")
+    if not 1 <= tangent_chunk <= TC_MAX_CHUNK:
+        raise ValueError(f"the tensor-core EGCL tangent takes 1 <= tangent_chunk <= "
+                         f"{TC_MAX_CHUNK}; got {tangent_chunk}")
+
+
+def _aligned(a):
+    """``a`` contiguous and 16-byte aligned (the kernel reads it as float4)."""
+    a = a.contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
+
+
+def egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, packed_tc=None,
+                          tangent_chunk: int = 16, **cfg):
+    """K4 in bf16 compute on tensor cores (``csrc/egnn_tangent_tc.cu``);
+    returns (dh_out, dx_out). A block of the kernel takes ``tangent_chunk``
+    tangents of one chain. Takes F in (16, 32), N up to 64 and 1 <=
+    ``tangent_chunk`` <= 16 on every device; raises on anything else, and on
+    a compute dtype other than bf16. On CPU tensors it runs the plain
+    version."""
+    _check_inputs(h, x, edge_attr, xs0, basis, dh, dx)
+    _check_bf16(cfg, "tangent")
+    B, N, F = h.shape
+    _check_tc_limits(N, F, tangent_chunk)
+    if h.device.type == "cpu":
+        with torch.no_grad():
+            return layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, **cfg)
+    _, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "tangent")
+    lib = _lib_tc()
+    Tc = dh.shape[1]
+    ins = [_aligned(a) for a in (h, x, edge_attr, xs0, basis, dh, dx)]
+    dh_out, dx_out = torch.empty_like(ins[5]), torch.empty_like(ins[6])
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.pita_egcl_tangent_tc(
+            *(a.data_ptr() for a in ins), packed.data_ptr(), packed_tc.data_ptr(),
+            dh_out.data_ptr(), dx_out.data_ptr(), B, Tc, int(tangent_chunk), *args[1:], stream,
+        )
+    _build.check(err, "egnn_layer_tangent_tc")
+    egnn_layer_tangent_tc.launches += 1
+    return dh_out, dx_out
+
+
 egnn_layer_tangent.launches = 0
+egnn_layer_tangent_tc.launches = 0
 
 
 @torch.no_grad()
-def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 8,
+def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 16,
                               super_chunk: int = 64):
     """tr dF/dx of the EGNN backbone in forward mode, (B,).
 
@@ -180,13 +266,14 @@ def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 8,
     diff0 = xs[:, :, None, :] - xs[:, None, :, :]
     ea = (diff0 * diff0).sum(-1).contiguous()
 
-    packs = [layer.packed(dev) if dev.type == "cuda" else None for layer in backbone.layers]
+    cuda = dev.type == "cuda"
+    packs = [(layer.packed(dev) if cuda else None,
+              layer.packed(dev, tc=True) if cuda and layer.cfg["cd"] == torch.bfloat16 else None)
+             for layer in backbone.layers]
     states, xc = [], xs
-    for layer, packed in zip(backbone.layers, packs):
+    for layer, (packed, packed_tc) in zip(backbone.layers, packs):
         states.append((h, xc))
-        tc = dev.type == "cuda" and layer.cfg["cd"] == torch.bfloat16
-        h, xc = egnn_layer_forward(h, xc, ea, layer.weights(), packed=packed,
-                                   packed_tc=layer.packed(dev, tc=True) if tc else None,
+        h, xc = egnn_layer_forward(h, xc, ea, layer.weights(), packed=packed, packed_tc=packed_tc,
                                    **layer.cfg)
 
     eye = torch.eye(D, dtype=torch.float32, device=dev)
@@ -195,10 +282,10 @@ def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 8,
         basis = eye[start:start + super_chunk].reshape(-1, N, 3)  # (Tc, N, 3)
         dh = torch.zeros(B, basis.shape[0], N, F, device=dev)
         dx = basis[None].expand(B, -1, -1, -1).contiguous()
-        for layer, packed, (h_l, x_l) in zip(backbone.layers, packs, states):
+        for layer, (packed, packed_tc), (h_l, x_l) in zip(backbone.layers, packs, states):
             dh, dx = egnn_layer_tangent(h_l, x_l, ea, xs, basis, dh, dx, layer.weights(),
-                                        packed=packed, tangent_chunk=tangent_chunk,
-                                        **layer.cfg)
+                                        packed=packed, packed_tc=packed_tc,
+                                        tangent_chunk=tangent_chunk, **layer.cfg)
         dvel = dx - basis[None]
         dvel = dvel - dvel.mean(dim=2, keepdim=True)
         trace = trace + (dvel * basis[None]).sum(dim=(1, 2, 3))

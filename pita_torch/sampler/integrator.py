@@ -73,7 +73,7 @@ class IntegratorConfig:
     divergence_tangent_chunk: Optional[int] = None
     divergence_g_kernel: bool = False
     divergence_tangent_kernel: bool = False
-    kernel_tangent_chunk: int = 8
+    kernel_tangent_chunk: int = 16
     hutchinson_probes: int = 1
     weight_clip_quantile: float = 0.9
     ess_resampling_threshold: Optional[float] = None

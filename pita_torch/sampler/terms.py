@@ -45,7 +45,7 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
                       divergence_tangent_chunk: Optional[int] = None,
                       divergence_g_kernel: bool = False,
                       divergence_tangent_kernel: bool = False,
-                      kernel_tangent_chunk: int = 8,
+                      kernel_tangent_chunk: int = 16,
                       probes: Optional[torch.Tensor] = None,
                       div_bt_override: Optional[torch.Tensor] = None) -> SDETerms:
     """drift_X and drift_A at times t (B,) for chains x (B, D).

@@ -238,28 +238,96 @@ def test_g_op_scalar_kernel_matches_plain(cuda):
     (16, 40, 7, 1, torch.bfloat16, 3e-2),
 ])
 def test_egcl_tangent_kernel_matches_plain(cuda, F, N, Tc, tc, cd, tol):
+    """The dispatch: bf16 runs the tensor-core K4, f32 the scalar K4, each
+    counted on its own counter."""
     w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
-    g = torch.Generator(device=cuda).manual_seed(N + 1)
-    B = 6
-    randn = lambda *s: torch.randn(s, generator=g, device=cuda)
-    xs0 = randn(B, N, 3) * 0.5
-    x = xs0 + 0.1 * randn(B, N, 3)
-    h = randn(B, N, F)
-    ea = ((xs0[:, :, None] - xs0[:, None]) ** 2).sum(-1)
-    basis = torch.eye(3 * N, device=cuda)[torch.randperm(3 * N, generator=g, device=cuda)[:Tc]]
-    basis = basis.reshape(Tc, N, 3)
-    dh, dx = randn(B, Tc, N, F), randn(B, Tc, N, 3)
+    args = _tangent_inputs(cuda, 6, N, F, Tc, seed=N + 1)
+    tc_kernel = cd == torch.bfloat16
+    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
-        before = et.egnn_layer_tangent.launches
-        got = et.egnn_layer_tangent(h, x, ea, xs0, basis, dh, dx, w, tangent_chunk=tc, **cfg)
-        assert et.egnn_layer_tangent.launches == before + 1
+        before = counts()
+        got = et.egnn_layer_tangent(*args, w, tangent_chunk=tc, **cfg)
+        assert counts() == (before[0] + (not tc_kernel), before[1] + tc_kernel)
         with torch.no_grad():
-            ref = et.layer_tangent(h, x, ea, xs0, basis, dh, dx, w, **cfg)
+            ref = et.layer_tangent(*args, w, **cfg)
         torch.cuda.synchronize()
         # f32: sums reassociated; bf16: now and then a neighbouring bf16 rounding
         for a, b in zip(got, ref):
             assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+def _tangent_inputs(device, B, N, F, Tc, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=device)
+    xs0 = randn(B, N, 3) * 0.5
+    x = xs0 + 0.1 * randn(B, N, 3)
+    h = randn(B, N, F)
+    ea = ((xs0[:, :, None] - xs0[:, None]) ** 2).sum(-1)
+    basis = torch.eye(3 * N, device=device)[torch.randperm(3 * N, generator=g, device=device)[:Tc]]
+    return h, x, ea, xs0, basis.reshape(Tc, N, 3), randn(B, Tc, N, F), randn(B, Tc, N, 3)
+
+
+@pytest.mark.parametrize("F,N,Tc,B,tc", [
+    (32, 55, 64, 8, 8),  # the main path's launch, at 8 chains
+    (32, 55, 37, 8, 8),  # the ragged last super-chunk: blocks of 8 and one of 5
+    (32, 64, 64, 1, 16),  # four full sender tiles; the largest chunk
+    (32, 13, 1, 8, 8),  # one tangent; one partly filled sender tile
+    (16, 55, 37, 1, 5),
+    (16, 64, 1, 8, 1),
+    (16, 13, 39, 1, 16),  # all 39 tangents of N = 13
+    (32, 55, 1, 1, 3),
+])
+def test_egcl_tangent_tc_kernel_matches_plain(cuda, F, N, Tc, B, tc):
+    """The tensor-core K4 at the edges of its tiles: sender tiles partly
+    inside N, chunks of tangents that do not divide Tc, the largest N and
+    chunk; attention and tanh on and off."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    args = _tangent_inputs(cuda, B, N, F, Tc, seed=3 * N + Tc)
+    for attention, tanh in ((True, True), (False, False), (True, False), (False, True)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.bfloat16)
+        before = (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
+        got = et.egnn_layer_tangent_tc(*args, w, tangent_chunk=tc, **cfg)
+        assert (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches) == (
+            before[0], before[1] + 1)
+        with torch.no_grad():
+            ref = et.layer_tangent(*args, w, **cfg)
+        torch.cuda.synchronize()
+        # the same bf16 roundings up to a neighbouring bf16 now and then
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max() <= 3e-2 * b.abs().max()
+
+
+def test_egcl_tangent_tc_kernel_is_deterministic(cuda):
+    """One warp writes each output and sums over senders in a fixed order:
+    two launches on the same inputs are bitwise equal."""
+    w = _bench_layer(cuda)
+    args = _tangent_inputs(cuda, 8, 55, 32, 64, seed=5)
+    run = lambda: et.egnn_layer_tangent_tc(*args, w, cd=torch.bfloat16)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N,F,tc,match", [
+    (65, 32, 8, "N <= 64"), (13, 24, 8, "N <= 64"), (13, 32, 17, "tangent_chunk"),
+    (13, 32, 0, "tangent_chunk"),
+])
+def test_egcl_tangent_tc_kernel_refuses_unsupported_shapes(cuda, N, F, tc, match):
+    w = _random_layer(F, cuda, seed=1)
+    args = _tangent_inputs(cuda, 2, N, F, 3, seed=2)
+    before = et.egnn_layer_tangent_tc.launches
+    with pytest.raises(ValueError, match=match):
+        et.egnn_layer_tangent(*args, w, tangent_chunk=tc, cd=torch.bfloat16)
+    assert et.egnn_layer_tangent_tc.launches == before
+
+
+def test_egcl_tangent_tc_limits_match_the_kernel(cuda):
+    """The limits the wrapper checks on every device are the kernel's."""
+    lib = et._lib_tc()
+    assert lib.pita_egcl_tangent_tc_max_n() == et.TC_MAX_N
+    assert lib.pita_egcl_tangent_tc_max_chunk() == et.TC_MAX_CHUNK
 
 
 def test_trace_routes_agree_on_the_card(cuda, monkeypatch):
@@ -288,6 +356,33 @@ def test_trace_routes_agree_on_the_card(cuda, monkeypatch):
     assert share >= 1e-4  # else the comparison below could not see a wrong K5
     assert (tr_g - tr_m).abs().max() <= share / 20 * top  # bf16 G and Bv: ~1e-3 of the term
     assert (tr_f - tr_m).abs().max() <= 1e-4 * top  # f32 both
+
+
+def test_trace_bf16_routes_agree_on_the_card(cuda):
+    """The forward-mode trace of a bf16 backbone runs the tensor-core K4
+    (nine launches: 3 layers x 3 super-chunks of 16, 16 and 7 tangents) and
+    never the scalar one, and agrees with the same trace by the plain
+    version on the CPU within chip_smoke.py's TOL_TRACE_BF16: both round the
+    same tangents to bf16, up to a neighbouring bf16 where an f32 value an
+    ulp apart rounds the other way. (The edge-operator trace rounds no
+    tangent; on this small model the two routes differ by ~2.6e-3 of the
+    trace whichever K4 runs, so it is no yardstick of the kernel.)"""
+    bb = EGNNBackbone(13, hidden_nf=16, n_layers=3, compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(7)
+    for name, p in bb.named_parameters():
+        scale = 0.1 if p.dim() == 1 else 0.01 if name.endswith("w_c2") else p.shape[0] ** -0.5
+        p.data = torch.randn(p.shape, generator=g) * scale
+    t = torch.rand(5, generator=g)
+    x = torch.randn(5, 39, generator=g) * 0.5
+    tr_p = et.egnn_jacobian_trace_fused(bb, t, x, 1.0, tangent_chunk=4, super_chunk=16)
+    bb = bb.to(cuda)
+    before = (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
+    tr_f = et.egnn_jacobian_trace_fused(bb, t.to(cuda), x.to(cuda), 1.0, tangent_chunk=4,
+                                        super_chunk=16)
+    assert (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches) == (
+        before[0], before[1] + 9)
+    torch.cuda.synchronize()
+    assert (tr_f.cpu() - tr_p).abs().max() <= 1e-3 * tr_p.abs().max()
 
 
 def test_exact_generic_divergence_on_the_card(cuda):

@@ -20,7 +20,7 @@ from pita_torch.nets.egnn_fast import egnn_jacobian_trace
 from pita_torch.ops.divergence import exact_divergence
 from pita_torch.ops.egnn_layer import layer_step
 from pita_torch.ops.egnn_tangent import (egnn_jacobian_trace_fused, egnn_layer_tangent,
-                                         layer_tangent)
+                                         egnn_layer_tangent_tc, layer_tangent)
 
 
 def _layer(seed, hidden, n=6):
@@ -155,3 +155,39 @@ def test_three_trace_routes_agree_on_large_weights():
     tr_rev = exact_divergence(lambda tq, xq: bb(tq, xq, 1.0), t, x)
     np.testing.assert_allclose(tr_op.numpy(), tr_rev.numpy(), rtol=2e-5)
     np.testing.assert_allclose(tr_fwd.numpy(), tr_rev.numpy(), rtol=2e-5)
+
+
+@pytest.mark.parametrize("attention,tanh", [(True, True), (False, False)])
+def test_bf16_dispatch_on_cpu_runs_the_plain_version(attention, tanh):
+    """On CPU tensors both K4 entry points run the plain version in bf16 and
+    launch no kernel: the tensor-core K4 is chosen by dtype only on CUDA."""
+    _, tw = _layer(seed=9, hidden=16)
+    args = [torch.as_tensor(a) for a in _inputs(2, 5, 6, 16, seed=10)]
+    cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.bfloat16)
+    before = (egnn_layer_tangent.launches, egnn_layer_tangent_tc.launches)
+    ref = layer_tangent(*args, tw, **cfg)
+    for fn in (egnn_layer_tangent, egnn_layer_tangent_tc):
+        got = fn(*args, tw, tangent_chunk=3, **cfg)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    assert (egnn_layer_tangent.launches, egnn_layer_tangent_tc.launches) == before
+
+
+@pytest.mark.parametrize("n,hidden,chunk,cd,match", [
+    (65, 16, 8, torch.bfloat16, "N <= 64"),  # more senders than four 16-row tiles
+    (6, 24, 8, torch.bfloat16, "F in"),  # a width the products do not tile
+    (6, 16, 0, torch.bfloat16, "tangent_chunk"),
+    (6, 16, 17, torch.bfloat16, "tangent_chunk"),  # a chunk is one 16-row tile at most
+    (6, 16, 8, torch.float32, "bf16 only"),  # f32 stays on the scalar K4
+])
+def test_tc_wrapper_refuses_what_the_kernel_cannot_take(n, hidden, chunk, cd, match):
+    """The tensor-core K4's limits are checked on the host, on every device."""
+    rng = np.random.default_rng(11)
+    w = {f: torch.as_tensor(rng.normal(size=s).astype(np.float32)) for f, s in dict(
+        w_src=(hidden, hidden), b_src=(hidden,), w_dst=(hidden, hidden), w_scal=(2, hidden),
+        w_e2=(hidden, hidden), b_e2=(hidden,), w_att=(hidden, 1), b_att=(1,),
+        w_c1=(hidden, hidden), b_c1=(hidden,), w_c2=(hidden, 1), w_n1=(2 * hidden, hidden),
+        b_n1=(hidden,), w_n2=(hidden, hidden), b_n2=(hidden,)).items()}
+    args = [torch.as_tensor(a) for a in _inputs(1, 2, n, hidden, seed=12)]
+    with pytest.raises(ValueError, match=match):
+        egnn_layer_tangent_tc(*args, w, tangent_chunk=chunk, cd=cd)
