@@ -461,13 +461,14 @@ def phase_g_op(wl, data):
 
 def tangent_fp32_ops(n_edge_tangents, F):
     """The f32 operations of the tangent map around its products, per the
-    formula of ops/egnn_tangent.py:layer_tangent, an FMA counting as one:
-    per edge, tangent and feature dz1 (dsrc + ddst + c w_r + e w_e: 3), the
-    sp1 and sp2 scales (1 each), dm = dm_pre att + m_pre datt (2), the dl and
-    dcm row sums (1 each, silu'(cz) w_c2 taken once per edge) and dagg (1);
-    per edge and tangent c and e (6 each), datt (1), da and dw (3) and the
-    dx sums (sum_j dw_ij, sum_j dw_ij x_j + w_ij dx_j: 7)."""
-    return n_edge_tangents * (10 * F + 24)
+    formula of ops/egnn_tangent.py:layer_tangent, an FMA counting as one and
+    every per-edge factor taken once per edge, from the primal: per edge,
+    tangent and feature dz1 (dsrc + ddst + c w_r + e w_e: 3), the sp1 scale
+    (1), dm = y (sp2 att) + m_pre datt (2) and the dl row sum y (sp2 w_att)
+    (1), with y = R(sp1 dz1) W_e2, the dcm row sum (1, sp_cz w_c2 a factor)
+    and dagg (1); per edge and tangent c and e (6 each), datt (1), da and dw
+    (3) and the dx sums (sum_j dw_ij, sum_j dw_ij x_j + w_ij dx_j: 7)."""
+    return n_edge_tangents * (9 * F + 23)
 
 
 def phase_tangent(wl, wl32, data):
@@ -594,9 +595,12 @@ def phase_tangent(wl, wl32, data):
         turns = [cuda_ms(f, reps=5, warmup=1) for f in (scalar, run, run, scalar)]
         ms, ms_s = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain = cuda_ms(lambda: plain_all(basis, dh, dx, cfg), reps=1, warmup=1)
-        # the scalar K4 in f32, its dtype of record, on the same inputs
-        ms32 = cuda_ms(lambda: et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w,
-                                                     packed=packed32, **cfg32), reps=5, warmup=1)
+        # the scalar K4 in f32, its dtype of record, on the same inputs: in
+        # turns at 8 and at 16 (the route's) tangents a block
+        scalar32 = lambda chunk: lambda: et.egnn_layer_tangent(
+            h, x, ea, xs, basis, dh, dx, w, packed=packed32, tangent_chunk=chunk, **cfg32)
+        turns32 = [cuda_ms(scalar32(c), reps=5, warmup=1) for c in (8, 16, 16, 8)]
+        ms32, ms32_8 = (turns32[1] + turns32[2]) / 2, (turns32[0] + turns32[3]) / 2
         plain32 = cuda_ms(lambda: plain_all(basis, dh, dx, cfg32), reps=1, warmup=1)
     E = B * N * (N - 1)
     # the two edge products per tangent, the primal's once, and the node
@@ -614,7 +618,9 @@ def phase_tangent(wl, wl32, data):
           f"-> bf16 {bnd:.4f} ms ({by}), f32 {bnd32:.4f} ms ({by32})")
     print(f"[phase 7] K4 bf16 B={B} Tc={Tc} layer 1: tensor-core kernel {ms:.4f} ms, in turns with "
           f"the scalar K4 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar); "
-          f"plain {plain:.3f} ms; the scalar K4 in f32 {ms32:.4f} ms (plain {plain32:.3f})")
+          f"plain {plain:.3f} ms; the scalar K4 in f32 at 16 tangents a block {ms32:.4f} ms, "
+          f"at 8 {ms32_8:.4f} ms, in turns {' / '.join(f'{v:.4f}' for v in turns32)} ms "
+          f"(8, 16, 16, 8; plain {plain32:.3f})")
     if not ms < ms_s:
         fail("the tensor-core K4 is not faster than the scalar K4 at the main path's launch")
     return (dict(max_abs_err=worst["bf16"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,

@@ -16,9 +16,9 @@
 //
 // What bounds it on the H100: per chain, tangent and edge two F x F products
 // (2e11 operations a launch at 256 chains x 64 tangents, N = 55, F = 32:
-// 0.21 ms on bf16 tensor cores) and 10F + 24 f32 operations around them
-// (dz1, the sp1, sp2 and gate scales, the dl and dcm row sums, dagg, the
-// edge scalars and the dx sums): 0.50 ms on the FP32 pipes, the bound. The
+// 0.21 ms on bf16 tensor cores) and 9F + 23 f32 operations around them
+// (dz1, the sp1 scale, the gated dm, the dl and dcm row sums, dagg, the
+// edge scalars and the dx sums): 0.45 ms on the FP32 pipes, the bound. The
 // scalar kernel also recomputed the primal edge chain (3F+1 sigmoids) for
 // every tangent. The design:
 //  - One block of 8 warps per chain and chunk of `tc` tangents (tc <= 16).

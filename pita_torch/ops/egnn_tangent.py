@@ -215,16 +215,16 @@ def egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, p
     """K4 in bf16 compute on tensor cores (``csrc/egnn_tangent_tc.cu``);
     returns (dh_out, dx_out). A block of the kernel takes ``tangent_chunk``
     tangents of one chain. Takes F in (16, 32), N up to 64 and 1 <=
-    ``tangent_chunk`` <= 16 on every device; raises on anything else, and on
-    a compute dtype other than bf16. On CPU tensors it runs the plain
-    version."""
+    ``tangent_chunk`` <= 16; raises on anything else, and on a compute dtype
+    other than bf16. On CPU tensors it runs the plain version, at any
+    shape."""
     _check_inputs(h, x, edge_attr, xs0, basis, dh, dx)
     _check_bf16(cfg, "tangent")
-    B, N, F = h.shape
-    _check_tc_limits(N, F, tangent_chunk)
     if h.device.type == "cpu":
         with torch.no_grad():
             return layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, **cfg)
+    B, N, F = h.shape
+    _check_tc_limits(N, F, tangent_chunk)
     _, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "tangent")
     lib = _lib_tc()
     Tc = dh.shape[1]

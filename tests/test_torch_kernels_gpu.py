@@ -324,7 +324,7 @@ def test_egcl_tangent_tc_kernel_refuses_unsupported_shapes(cuda, N, F, tc, match
 
 
 def test_egcl_tangent_tc_limits_match_the_kernel(cuda):
-    """The limits the wrapper checks on every device are the kernel's."""
+    """The limits the wrapper checks on CUDA tensors are the kernel's."""
     lib = et._lib_tc()
     assert lib.pita_egcl_tangent_tc_max_n() == et.TC_MAX_N
     assert lib.pita_egcl_tangent_tc_max_chunk() == et.TC_MAX_CHUNK

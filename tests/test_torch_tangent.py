@@ -173,21 +173,37 @@ def test_bf16_dispatch_on_cpu_runs_the_plain_version(attention, tanh):
     assert (egnn_layer_tangent.launches, egnn_layer_tangent_tc.launches) == before
 
 
-@pytest.mark.parametrize("n,hidden,chunk,cd,match", [
-    (65, 16, 8, torch.bfloat16, "N <= 64"),  # more senders than four 16-row tiles
-    (6, 24, 8, torch.bfloat16, "F in"),  # a width the products do not tile
-    (6, 16, 0, torch.bfloat16, "tangent_chunk"),
-    (6, 16, 17, torch.bfloat16, "tangent_chunk"),  # a chunk is one 16-row tile at most
-    (6, 16, 8, torch.float32, "bf16 only"),  # f32 stays on the scalar K4
-])
-def test_tc_wrapper_refuses_what_the_kernel_cannot_take(n, hidden, chunk, cd, match):
-    """The tensor-core K4's limits are checked on the host, on every device."""
-    rng = np.random.default_rng(11)
-    w = {f: torch.as_tensor(rng.normal(size=s).astype(np.float32)) for f, s in dict(
+def _random_weights(hidden, seed):
+    rng = np.random.default_rng(seed)
+    return {f: torch.as_tensor(rng.normal(size=s).astype(np.float32)) for f, s in dict(
         w_src=(hidden, hidden), b_src=(hidden,), w_dst=(hidden, hidden), w_scal=(2, hidden),
         w_e2=(hidden, hidden), b_e2=(hidden,), w_att=(hidden, 1), b_att=(1,),
         w_c1=(hidden, hidden), b_c1=(hidden,), w_c2=(hidden, 1), w_n1=(2 * hidden, hidden),
         b_n1=(hidden,), w_n2=(hidden, hidden), b_n2=(hidden,)).items()}
+
+
+@pytest.mark.parametrize("n,hidden,chunk", [
+    (65, 16, 8),  # more senders than the kernel's four 16-row tiles
+    (6, 24, 8),  # a width its products do not tile
+    (6, 16, 0),
+    (6, 16, 17),  # more tangents than its one 16-row tile
+])
+def test_tc_wrapper_on_cpu_runs_the_plain_version_past_the_kernel_limits(n, hidden, chunk):
+    """The tensor-core K4's limits are the kernel's: on CPU tensors the
+    wrapper runs the plain version at any shape, as K2's and K3's do (the
+    limits on CUDA tensors are tests/test_torch_kernels_gpu.py's)."""
+    w = _random_weights(hidden, seed=11)
     args = [torch.as_tensor(a) for a in _inputs(1, 2, n, hidden, seed=12)]
-    with pytest.raises(ValueError, match=match):
-        egnn_layer_tangent_tc(*args, w, tangent_chunk=chunk, cd=cd)
+    cfg = dict(attention=True, tanh=True, coords_range=5.0, cd=torch.bfloat16)
+    ref = layer_tangent(*args, w, **cfg)
+    got = egnn_layer_tangent_tc(*args, w, tangent_chunk=chunk, **cfg)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_tc_wrapper_refuses_f32():
+    """f32 stays on the scalar K4, on every device."""
+    w = _random_weights(16, seed=11)
+    args = [torch.as_tensor(a) for a in _inputs(1, 2, 6, 16, seed=12)]
+    with pytest.raises(ValueError, match="bf16 only"):
+        egnn_layer_tangent_tc(*args, w, tangent_chunk=8, cd=torch.float32)
