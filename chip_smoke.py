@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LJ55 sampling paths on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's LJ55 sampling and training paths on one NVIDIA GPU (H100).
 
 Usage, from the root of the repository on a machine with a CUDA card:
 
@@ -61,15 +61,29 @@ Phases, each printing lines, each failing the run on disagreement:
      exact (every step) at 256 chains x 100 steps per kernel route;
  10. the exact-divergence quality run: quadrature_k10 on the faster kernel
      route, 512 chains x 400 steps, final resample, 30 MALA steps; both arms
-     of the gate of phase 5 must pass.
+     of the gate of phase 5 must pass;
+ 11. the LJ55 training ladder through pita_torch.configs.build_trainer (the
+     lj55 preset: N = 55, hidden 32, 3 layers, f32): the rung-0 train set by
+     generate_lj_dataset (512 chains, 12,000 warmup steps; K1 must launch),
+     2 epochs x 25 batches of 256 on the autograd route (finite losses, no
+     kernel launched, one step on the card against the same step on the CPU
+     at batch 64, and the EMA's kernel buffers repacked), one rung
+     transition's fill by evaluate through the K4 route (256 chains x 100
+     steps; the f32 K1, K2, K3 and K4 must launch and no tensor-core kernel;
+     finite weights and energies; the rung-1 buffer filled; no escalated
+     retry), K1 and the f32 K2/K3/K4 compared and timed at those launches
+     (K1 also by torch.profiler), a fill step timed by each route, and a
+     checkpoint saved, restored into a fresh trainer and compared bitwise,
+     saved over, and a save interrupted before its rename.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
 off for matmuls and convolutions, so float32 stays float32.
 
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
+--training-only runs phases 1 and 11 only;
 --profile adds a torch.profiler breakdown of each timed main path (for the
-K5 route also its five largest PyTorch kernels);
+K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
 """
 
@@ -924,6 +938,403 @@ def quality(wl, data, seed, make_cfg=None, phase=5, label="hutch_ess_k10"):
     return w2_gt, spread, (w2_gt < gt_bound, w2_ex < 0.5 * spread)
 
 
+# ---------------------------------------------------------------- phase 11
+
+# one training step on the card against the same step on the CPU, same state
+# and draws: f32 sums in other orders through a second derivative (the CPU
+# port and pita_tpu agree within 2e-5 on the losses, tests/test_torch_train.py)
+TOL_STEP = 1e-4
+STEP_CPU_BATCH = 64  # the compared step's batch: the CPU's time, not the card's
+
+
+def lj55_train_cfg(tmp):
+    """The lj55 preset (N = 55, hidden 32, 3 layers, f32), cut for this
+    script: 2 epochs of 25 batches of 256, a 256-chain, 100-step transition
+    fill through the K4 route with no escalated retry."""
+    from pita_torch.configs import compose
+
+    return compose("lj55", overrides={
+        "out_dir": tmp, "energy.data_dir": os.path.join(tmp, "data"),
+        "trainer.n_train_batches_per_epoch": 25,
+        "trainer.num_temp_annealed_samples": 256,
+        "trainer.transition_fill_max_retries": 0,
+        "integrator.num_integration_steps": 100,
+        "integrator.end_resampling_step": 90,
+        "integrator.pallas_divergence": True,
+        "logger": ("csv",),
+    })
+
+
+def profiled_ms(run, key, n=50):
+    """Device time alone per launch of the kernels whose name holds ``key``
+    over ``n`` calls of ``run`` (torch.profiler); None without such a row."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    if not rows:
+        return None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
+
+
+def k1_entry(target, x, label, launches):
+    """K1 against its plain version at the shape x, its CUDA-event and
+    profiled time per launch, and its bound (as phase 2 counts it)."""
+    import torch
+
+    from pita_torch.ops import lj as ljop
+
+    N, B = target.n_particles, x.shape[0]
+    kw = dict(eps=target.eps, rm=target.rm, oscillator_scale=target._osc,
+              energy_factor=target.energy_factor, temperature=target.temperature,
+              spline=target.spline)
+    lp_k, f_k = ljop.lj_log_prob_and_force(x, N, **kw)
+    lp_p, f_p = ljop.lj_log_prob_and_force_plain(x, N, **kw)
+    torch.cuda.synchronize()
+    (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k, lp_p), rel_err(f_k, f_p)
+    if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
+        fail(f"K1 disagrees with its plain version at {label}")
+    run = lambda: ljop.lj_log_prob_and_force(x, N, **kw)
+    ms = cuda_ms(run, reps=50)
+    dev_ms = profiled_ms(run, "lj_kernel")
+    # the floor of a launch on the device: a one-element PyTorch add
+    one = torch.zeros(1, device=x.device)
+    floor_ms = profiled_ms(lambda: one.add_(1.0), "elementwise")
+    plain = cuda_ms(lambda: ljop.lj_log_prob_and_force_plain(x, N, **kw), reps=5)
+    bnd, by = bound_ms(4 * (2 * B * N * 3 + B), 26 * B * N * (N - 1), PEAK_F32)
+    ms_or = lambda v: "not measured (no kernel row)" if v is None else f"{v:.4f} ms"
+    dev, floor = ms_or(dev_ms), ms_or(floor_ms)
+    print(f"[phase 11] K1 at {label} (B={B}): rel err logp {r_lp:.2e} force {r_f:.2e} "
+          f"(tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone {dev} "
+          f"(torch.profiler; a one-element add's {floor}), plain {plain:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}); "
+          f"{launches} launches")
+    return dict(name=f"lj_log_prob_and_force ({label})", route="cuda",
+                source="pita_torch/csrc/lj.cu", replaces="pita_tpu/ops/pallas/lj.py:108",
+                launches=launches, max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def fill_layer_entries(tr, x_flat, counts):
+    """The f32 scalar K2, K3 and K4 at the fill's launches (256 chains for
+    the drift's networks; 64-chain chunks of 64 tangents for the K4 route),
+    on the EMA score net's layer 0: against their plain versions, timed."""
+    import torch
+
+    from pita_torch.nets.precondition import coeffs
+    from pita_torch.ops import egnn_layer as el
+    from pita_torch.ops import egnn_tangent as et
+
+    bb = tr.ema_score.module
+    layer = bb.layers[0]
+    dev = x_flat.device
+    B, N, F = x_flat.shape[0], tr.n_particles, bb.hidden_nf
+    ht = tr.noise_schedule.h(torch.full((B,), 0.5, device=dev))
+    _, c_in, _, c_noise = coeffs(ht)
+    x_in = c_in[:, None] * x_flat
+    xs = x_in.reshape(B, N, 3).contiguous()
+    h = bb.embed(c_noise, x_in, 1.0).contiguous()
+    ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
+    gen = torch.Generator(dev).manual_seed(11)
+    gh = torch.randn(h.shape, generator=gen, device=dev)
+    gx = torch.randn(xs.shape, generator=gen, device=dev)
+    w, cfg, packed = layer.weights(), layer.cfg, layer.packed(dev)
+    fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
+    bwd = lambda: el.egnn_layer_backward(h, xs, ea, gh, gx, w, packed=packed, **cfg)
+    got = (*fwd(), *bwd())
+    with torch.no_grad():
+        ref_f = el.layer_step(h, xs, ea, w, **cfg)
+    ref = (*ref_f, *el.layer_vjp(h, xs, ea, gh, gx, w, **cfg))
+    Tc, Bc = 64, 64
+    basis = torch.eye(N * 3, device=dev)[:Tc].reshape(Tc, N, 3).contiguous()
+    dh = torch.zeros(Bc, Tc, N, F, device=dev)
+    dx = basis[None].expand(Bc, -1, -1, -1).contiguous()
+    targs = (h[:Bc], xs[:Bc], ea[:Bc], xs[:Bc], basis, dh, dx)
+    tan = lambda: et.egnn_layer_tangent(*targs, w, packed=packed, **cfg)
+    got_t = tan()
+    with torch.no_grad():
+        ref_t = et.layer_tangent(*targs, w, **cfg)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip((*got, *got_t), (*ref, *ref_t))]
+    print(f"[phase 11] f32 scalar K2/K3 (B={B}) and K4 (B={Bc}, Tc={Tc}) on the trained EMA "
+          f"weights, layer 0: rel err " + ", ".join(
+              f"{n} {e[0]:.2e}" for n, e in zip(("h_out", "x_out", "dh", "dx", "dea",
+                                                 "dh_tan", "dx_tan"), errs))
+          + f" (tol {TOL_F32})")
+    if not max(e[0] for e in errs) <= TOL_F32:
+        fail("an f32 EGCL kernel disagrees with its plain version on the trained weights")
+    ms_f, ms_b, ms_t = cuda_ms(fwd), cuda_ms(bwd, reps=10), cuda_ms(tan, reps=5, warmup=1)
+    with torch.no_grad():
+        pl_f = cuda_ms(lambda: el.layer_step(h, xs, ea, w, **cfg), reps=5)
+        pl_t = cuda_ms(lambda: et.layer_tangent(*targs, w, **cfg), reps=2, warmup=1)
+    pl_b = cuda_ms(lambda: el.layer_vjp(h, xs, ea, gh, gx, w, **cfg), reps=3)
+    E, Et = B * N * (N - 1), Bc * N * (N - 1)
+    node_ops = B * N * 10 * F * F
+    wbytes = 4 * packed.numel()
+    sfu = lambda e: (3 * F + 2) * e
+    bf = bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + wbytes,
+                  E * 4 * F * F + node_ops, PEAK_F32, sfu(E))
+    bb_ = bound_ms(4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes,
+                   E * 8 * F * F + 2 * node_ops, PEAK_F32, sfu(E))
+    bt = bound_ms(4 * (2 * Bc * Tc * N * (F + 3) + Bc * N * (F + 6) + Bc * N * N + Tc * N * 3)
+                  + wbytes, Tc * Et * 4 * F * F + Et * 4 * F * F
+                  + (Tc + 1) * Bc * N * 10 * F * F, PEAK_F32,
+                  fp32_ops=tangent_fp32_ops(Tc * Et, F))
+    print(f"[phase 11] f32 at the fill's launches: scalar K2 {ms_f:.4f} ms (plain {pl_f:.3f}, "
+          f"bound {bf[0]:.4f} {bf[1]}), scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f}, bound "
+          f"{bb_[0]:.4f} {bb_[1]}), scalar K4 {ms_t:.4f} ms (plain {pl_t:.3f}, bound "
+          f"{bt[0]:.4f} {bt[1]})")
+    src = "pita_torch/csrc/"
+    mk = lambda name, file, rep, launches, err, ms, pl, bnd: dict(
+        name=f"{name} (phase 11 fill)", route="cuda", source=src + file,
+        replaces=f"pita_tpu/ops/pallas/egnn_fwd.py:{rep}", launches=launches,
+        max_abs_err=err, ms=ms, plain_ms=pl, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return [
+        mk("egcl_forward", "egnn_layer.cu", 318, counts["egnn_layer_forward"],
+           max(e[1] for e in errs[:2]), ms_f, pl_f, bf),
+        mk("egcl_backward", "egnn_layer.cu", 342, counts["egnn_layer_backward"],
+           max(e[1] for e in errs[2:5]), ms_b, pl_b, bb_),
+        mk("egcl_tangent", "egnn_tangent.cu", 365, counts["egnn_layer_tangent"],
+           max(e[1] for e in errs[5:]), ms_t, pl_t, bt),
+    ]
+
+
+def same_state(a, b):
+    """Whether two trainer states are equal, every tensor bitwise."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def profile_training(tr, n=5):
+    """torch.profiler over ``n`` training steps: device busy share of the
+    wall time and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step(0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = lambda e: e.self_device_time_total / 1e3
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=dev, reverse=True)
+    busy = sum(dev(e) for e in rows)
+    print(f"[profile] training, {n} steps of {tr.cfg.training_batch_size}: wall {wall_ms:.1f} ms "
+          f"(profiled), device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f} %, "
+          f"{sum(e.count for e in rows)} kernels")
+    for e in rows[:12]:
+        print(f"[profile] {dev(e):9.2f} ms  {100 * dev(e) / busy:5.1f} %  x{e.count:<5d} "
+              f"{e.key[:100]}")
+
+
+def phase_training(kernels, profile=False):
+    """Phase 11: the LJ55 training ladder on the card through
+    pita_torch.configs.build_trainer. Returns the kernels-line entries;
+    with ``profile`` also a torch.profiler breakdown of training steps."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pita_torch.configs import build_trainer
+    from pita_torch.io import checkpoint
+    from pita_torch.sampler import integrate_sde
+    from pita_torch.train.losses import LossDraws
+    from pita_torch.train.trainer import StepDraws
+
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = lj55_train_cfg(tmp)
+        tr = build_trainer(cfg, device="cuda")
+        print(f"[phase 11] lj55: N={tr.n_particles}, hidden {cfg.net['hidden_nf']}, "
+              f"{cfg.net['n_layers']} layers, batch {cfg.trainer.training_batch_size}, ladder "
+              f"{tuple(cfg.trainer.temperatures)}, f32, route {tr.score_net.route}")
+
+        # 1. the rung-0 train set (512 chains, 2000 Adam steps, 12,000 MALA
+        # warmup steps, 20 rounds of 200), then the buffer's energies and forces
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        tr.populate_initial_buffer()
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        k1_set = counts()["lj_log_prob_and_force"]
+        data = tr.targets[0]._train_set
+        e_set = -tr.targets[0].temperature * tr.buffers.energy[0, :int(tr.buffers.size[0])]
+        print(f"[phase 11] train set at T={tr.temperatures[0]}: {data.shape[0]} samples and "
+              f"the rung-0 buffer in {t_set:.2f} s, K1 launched {k1_set} times (the last for "
+              f"the buffer's {int(tr.buffers.size[0])} rows); buffer energy mean "
+              f"{float(e_set.mean()):.4f}, std {float(e_set.std()):.4f}, min "
+              f"{float(e_set.min()):.4f}, max {float(e_set.max()):.4f}")
+        if k1_set == 0 or not bool(torch.isfinite(e_set).all()) or float(e_set.max()) > 1e3:
+            fail("the train set did not run through K1 or has non-finite or unhealthy energies")
+
+        # 2. training: 2 epochs x 25 batches of 256, autograd route
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epochs = [tr.train_one_epoch() for _ in range(2)]
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        n_steps = 2 * cfg.trainer.n_train_batches_per_epoch
+        print(f"[phase 11] training: {n_steps} steps in {t_train:.3f} s, "
+              f"{1e3 * t_train / n_steps:.2f} ms a step; losses by epoch "
+              + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in e.items()) for e in epochs)
+              + f"; kernel launches {counts()}")
+        if not all(math.isfinite(v) for e in epochs for v in e.values()):
+            fail("a training loss is not finite")
+        if any(counts().values()):
+            fail("the autograd training route launched a kernel")
+        if profile:
+            profile_training(tr)
+        # the same step on the card and on the CPU, same state and draws
+        state = tr.state_dict()
+        state.pop("generator")
+        d = tr.draw_step(0)
+        nb = STEP_CPU_BATCH
+        d = StepDraws(d.idx[:nb], d.rot_normal[:nb], None,
+                      LossDraws(d.loss.ln_sigma_normal[:nb], d.loss.noise[:nb]))
+        cpu_tr = build_trainer(cfg, device="cpu")
+        cpu_tr.load_state_dict(state)
+        cpu_d = StepDraws(*(None if v is None else v.cpu() for v in d[:3]),
+                          LossDraws(*(v.cpu() for v in d.loss[:2])))
+        packed_before = tr.ema_score.module.layers[0].packed(torch.device("cuda")).clone()
+        aux_c, gn_c = tr.train_step(0, draws=d)
+        t0 = time.perf_counter()
+        aux_h, gn_h = cpu_tr.train_step(0, draws=cpu_d)
+        t_cpu = time.perf_counter() - t0
+        worst = 0.0
+        for k in aux_h:
+            a, b = float(aux_c[k]), float(aux_h[k])
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+        g_rel = abs(float(gn_c) - float(gn_h)) / float(gn_h)
+        print(f"[phase 11] one step at batch {nb}, card against CPU ({t_cpu:.2f} s there): "
+              f"losses max rel err {worst:.2e}, global gradient norm {float(gn_c):.6g} / "
+              f"{float(gn_h):.6g} rel err {g_rel:.2e} (tol {TOL_STEP})")
+        if not (worst <= TOL_STEP and g_rel <= TOL_STEP):
+            fail("a training step on the card disagrees with the same step on the CPU")
+        del cpu_tr
+        # the sampler's kernels see the updated EMA weights
+        if torch.equal(packed_before, tr.ema_score.module.layers[0].packed(torch.device("cuda"))):
+            fail("the EMA update did not repack the layer's kernel weights")
+
+        # 3. one rung transition: the val set of rung 1 first (its own K1
+        # launches), then evaluate at the first transition epoch
+        t0 = time.perf_counter()
+        tr.targets[1].sample_val_set(1, tr.generator)
+        torch.cuda.synchronize()
+        print(f"[phase 11] val set at T={tr.temperatures[1]}: {time.perf_counter() - t0:.2f} s")
+        x_fill = tr.targets[0].sample_train_set(256, tr.generator)
+        tr.epoch = int(tr.update_temp_epoch[0]) - 1
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.evaluate("val")
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        fill_counts = counts()
+        buf1 = int(tr.buffers.size[1])
+        print(f"[phase 11] transition fill T={tr.temperatures[0]} -> {tr.temperatures[1]} "
+              f"(K4 route, 256 chains x 100 steps + the 256-chain no-resampling pass): "
+              f"{t_fill:.2f} s; launches {fill_counts}; rung-1 buffer {buf1} rows; "
+              + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+        for k in ("lj_log_prob_and_force", "egnn_layer_forward", "egnn_layer_backward",
+                  "egnn_layer_tangent"):
+            if fill_counts[k] == 0:
+                fail(f"the f32 fill did not launch {k}")
+        for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc", "egnn_layer_tangent_tc",
+                  "g_operator_contract", "_contract_scalar"):
+            if fill_counts[k]:
+                fail(f"the f32 fill launched {k}")
+        if buf1 == 0 or not math.isfinite(m["val/ess"]) or not math.isfinite(
+                m["val/energy_mean"]):
+            fail("the fill left the rung-1 buffer empty or its weights or energies not finite")
+        if not bool(torch.isfinite(tr.buffers.energy[1, :buf1]).all()):
+            fail("the filled buffer holds non-finite energies")
+        layer_rows = fill_layer_entries(tr, x_fill, fill_counts)
+        rows = [k1_entry(tr.targets[0], torch.as_tensor(data[:512], device="cuda"),
+                         "train-set MCMC, 512 chains", k1_set),
+                k1_entry(tr.targets[1], x_fill, "fill, 256 chains",
+                         fill_counts["lj_log_prob_and_force"])] + layer_rows
+        # what one step of the fill costs by route, 256 chains, the EMA nets
+        nets = tr._eval_wrappers()
+        anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
+        x1 = tr._prior(1.0).sample(256, generator=tr.generator, device="cuda")
+        route_s = {}
+        for route, kw in (("K4", dict(divergence_tangent_kernel=True)),
+                          ("K5", dict(divergence_tangent_kernel=False, divergence_g_kernel=True)),
+                          ("materialized", dict(divergence_tangent_kernel=False))):
+            c10 = cfg.integrator.replace(num_integration_steps=10, end_resampling_step=9,
+                                         resample_at_end=False, **kw)
+            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
+                          c10.replace(num_integration_steps=1, end_resampling_step=1),
+                          seed=1, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10,
+                          seed=2, device="cuda")
+            torch.cuda.synchronize()
+            route_s[route] = (time.perf_counter() - t0) / 10
+        print("[phase 11] one f32 fill step, 256 chains (10 steps timed): "
+              + ", ".join(f"{r} route {1e3 * s:.1f} ms" for r, s in route_s.items()))
+
+        # 4. checkpoint: save, restore into a fresh trainer, compare; save over
+        # it; an interrupted save leaves the previous one readable
+        path = os.path.join(tmp, "ckpt", "lj55.pt")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(tr, path)
+        t_save = time.perf_counter() - t0
+        fresh = build_trainer(cfg, device="cuda")
+        t0 = time.perf_counter()
+        checkpoint.restore_checkpoint(fresh, path)
+        t_load = time.perf_counter() - t0
+        if not same_state(fresh.state_dict(), tr.state_dict()):
+            fail("a restored checkpoint differs from the saved state")
+        tr.train_step(1)
+        checkpoint.save_checkpoint(tr, path)
+        second = tr.state_dict()
+        tr.train_step(1)
+        write = checkpoint._write
+
+        def torn(state, p):
+            with open(p, "wb") as f:
+                f.write(b"torn")
+            raise OSError("simulated failure before the rename")
+
+        checkpoint._write = torn
+        try:
+            checkpoint.save_checkpoint(tr, path)
+            fail("the simulated interrupted save did not raise")
+        except OSError:
+            pass
+        finally:
+            checkpoint._write = write
+        checkpoint.restore_checkpoint(fresh, path)
+        if not same_state(fresh.state_dict(), second):
+            fail("an interrupted save did not leave the previous checkpoint whole")
+        print(f"[phase 11] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB: saved in "
+              f"{t_save:.2f} s, restored in {t_load:.2f} s into a fresh trainer, every tensor "
+              f"equal; saved over, then an interrupted save left the previous one whole "
+              f"({sorted(os.listdir(os.path.dirname(path)))})")
+        del fresh
+    return rows
+
+
 def main():
     import torch
 
@@ -958,6 +1369,13 @@ def main():
             if "registers" in ln or "spill" in ln or "Function properties" in ln:
                 print(f"[phase 1] {name}: {ln.strip()}")
 
+    kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
+               egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
+               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar)
+    if "--training-only" in sys.argv[1:]:  # quick check of the training path
+        phase_training(kernels, "--profile" in sys.argv[1:])
+        return 0
+
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
     wl32 = load_lj55_bench(device="cuda", compute_dtype=torch.float32)
     data = wl.data_T_low
@@ -972,9 +1390,6 @@ def main():
         return 0
 
     # phase 4: the first main path, timed
-    kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
-               egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
-               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar)
     gen = torch.Generator("cuda").manual_seed(0)
     n_chains, n_steps = 2048, 100
     x1 = torch.randn(n_chains, 165, generator=gen, device="cuda") * wl.prior_scale
@@ -1063,6 +1478,10 @@ def main():
         fail(f"the exact-divergence quality run misses an arm of the gate (ground truth, exact "
              f"population: {arms})")
 
+    # phase 11: the LJ55 training ladder (train set, training, a rung
+    # transition's fill, checkpoints), the f32 kernels its main route
+    training_rows = phase_training(kernels, profile)
+
     src = "pita_torch/csrc/"
     line = {"kernels": [
         dict(name="lj_log_prob_and_force", route="cuda", source=src + "lj.cu",
@@ -1097,6 +1516,7 @@ def main():
         dict(name="g_operator_contract_scalar", route="cuda", source=src + "g_op.cu",
              replaces="pita_tpu/ops/pallas/g_op.py:133",
              launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
+        *training_rows,
     ]}
     print(json.dumps(line))
     print(smi)

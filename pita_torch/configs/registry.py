@@ -1,0 +1,242 @@
+"""Experiment presets and dotted-override composition.
+
+Counterpart of ``pita_tpu/configs/registry.py:25-111,272-500`` for the LJ
+experiments: ``ExperimentConfig``, the ``lj13`` and ``lj55`` presets, the
+``short`` debug overlay, ``compose``, ``parse_overrides`` and
+``build_trainer``. The presets are copies of ``pita_tpu``'s (this package
+imports nothing of it), without the TPU-only integrator keys
+(``segment_size``). ``pita_tpu``'s ``integrator.pallas_divergence`` is
+accepted as the port's ``integrator.divergence_tangent_kernel`` (the K4
+route). The other presets, the ``score_only`` overlay and YAML overlays are
+not ported.
+"""
+
+import ast
+import copy
+import dataclasses
+import os
+from typing import Any, Dict, List, Optional
+
+from pita_torch.sampler.integrator import IntegratorConfig
+from pita_torch.train.losses import LossConfig
+from pita_torch.train.trainer import TrainerConfig
+
+# pita_tpu's integrator keys -> the port's
+KEY_ALIASES = {"integrator.pallas_divergence": "integrator.divergence_tangent_kernel"}
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    name: str
+    energy: Dict[str, Any]
+    net: Dict[str, Any]
+    noise_schedule: Dict[str, Any]
+    annealing_schedule: Dict[str, Any]
+    trainer: TrainerConfig
+    loss: LossConfig
+    integrator: IntegratorConfig
+    logger: tuple = ("csv", "console")
+    out_dir: str = "outputs"
+    tags: tuple = ()
+
+
+def _lj13() -> dict:
+    """configs/experiment/lj13.yaml (registry.py:42-83)."""
+    return dict(
+        name="lj13",
+        tags=("LJ13",),
+        energy=dict(kind="lj", n_particles=13, smooth=False),
+        net=dict(kind="egnn", hidden_nf=32, n_layers=3),
+        noise_schedule=dict(kind="elucidating", sigma_min=0.05, sigma_max=80.0, rho=7.0),
+        annealing_schedule=dict(kind="constant"),
+        trainer=dict(
+            temperatures=(4.0, 3.0, 2.0, 1.5, 1.2, 1.0),
+            num_epochs_per_temp=(150, 200, 150, 200, 300),
+            training_batch_size=512,
+            num_temp_annealed_samples=5000,
+            num_samples_to_save=10000,
+            num_init_samples=10000,
+            num_eval_samples=2048,
+            train_on_all_temps=True,
+            seed=12345,
+        ),
+        loss=dict(w_energy_score=1.0, w_score=1.0, w_energy_matching=1.0,
+                  w_target_score=0.0, w_dem_energy=0.0),
+        integrator=dict(
+            num_integration_steps=1000,
+            end_resampling_step=900,
+            resampling_interval=1,
+            resample_at_end=True,
+            post_mcmc_steps=0,
+            num_negative_time_steps=0,
+            divergence_chunk_size=1024,
+        ),
+    )
+
+
+def _lj55() -> dict:
+    """LJ13 scaled to the 55-particle cluster (registry.py:86-111)."""
+    cfg = _lj13()
+    cfg.update(name="lj55", tags=("LJ55",))
+    cfg["energy"] = dict(kind="lj", n_particles=55, smooth=True)
+    cfg["trainer"] = dict(
+        cfg["trainer"],
+        training_batch_size=256,
+        num_eval_samples=1024,
+        temperatures=(2.0, 1.5, 1.2, 1.0),
+        num_epochs_per_temp=(200, 200, 300),
+        transition_min_fill_ess=0.02,
+        transition_fill_max_retries=2,
+        transition_fill_extra_mcmc=30,
+    )
+    cfg["integrator"] = dict(cfg["integrator"], divergence_chunk_size=64)
+    return cfg
+
+
+EXPERIMENTS = {"lj13": _lj13, "lj55": _lj55}
+
+# configs/debug/*.yaml (registry.py:276-290)
+DEBUG_OVERLAYS = {
+    "short": {
+        "trainer.n_train_batches_per_epoch": 4,
+        "trainer.training_batch_size": 32,
+        "trainer.num_init_samples": 256,
+        "trainer.num_eval_samples": 64,
+        "trainer.num_temp_annealed_samples": 128,
+        "trainer.num_samples_to_save": 128,
+        "trainer.test_batch_size": 64,
+        "trainer.check_val_every_n_epoch": 1,
+        "integrator.num_integration_steps": 2,
+        "integrator.end_resampling_step": 2,
+        "logger": ("csv",),
+    },
+}
+
+
+def _set_dotted(cfg: dict, dotted: str, value):
+    parts = KEY_ALIASES.get(dotted, dotted).split(".")
+    node = cfg
+    for p in parts[:-1]:
+        node = node[p]
+    node[parts[-1]] = value
+
+
+def _coerce(s):
+    if isinstance(s, (int, float, bool, tuple, list)) or s is None:
+        return s
+    low = s.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "none"):
+        return None
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    if s and s[0] in "([":
+        def tup(v):
+            return tuple(tup(p) for p in v) if isinstance(v, (tuple, list)) else v
+
+        try:
+            return tup(ast.literal_eval(s))
+        except (ValueError, SyntaxError):
+            pass
+    if "," in s:
+        return tuple(_coerce(p) for p in s.strip("[]()").split(",") if p != "")
+    return s
+
+
+def parse_overrides(args: List[str]) -> dict:
+    """Parse ``key=value`` CLI tokens (hydra style)."""
+    out = {}
+    for a in args:
+        if "=" not in a:
+            raise ValueError(f"override '{a}' is not key=value")
+        k, v = a.split("=", 1)
+        out[k] = _coerce(v)
+    return out
+
+
+def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None,
+            debug: Optional[str] = None) -> ExperimentConfig:
+    """Preset, then the debug overlay, then the overrides."""
+    if experiment not in EXPERIMENTS:
+        raise ValueError(f"experiment {experiment!r} is not ported (have {sorted(EXPERIMENTS)})")
+    cfg = copy.deepcopy(EXPERIMENTS[experiment]())
+    merged = dict(DEBUG_OVERLAYS[debug]) if debug is not None else {}
+    merged.update(overrides or {})
+    for k, v in merged.items():
+        if "." in k:
+            _set_dotted(cfg, k, v)
+        else:
+            cfg[k] = v
+    return ExperimentConfig(
+        name=cfg["name"], energy=cfg["energy"], net=cfg["net"],
+        noise_schedule=cfg["noise_schedule"], annealing_schedule=cfg["annealing_schedule"],
+        trainer=TrainerConfig(**cfg["trainer"]), loss=LossConfig(**cfg["loss"]),
+        integrator=IntegratorConfig(**cfg["integrator"]),
+        logger=tuple(cfg.get("logger", ("csv", "console"))),
+        out_dir=cfg.get("out_dir", "outputs"), tags=tuple(cfg.get("tags", ())),
+    )
+
+
+def _build_target(spec: dict, temperature: float):
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    if kind != "lj":
+        raise ValueError(f"energy kind {kind!r} is not ported")
+    from pita_torch.targets import LennardJones
+
+    return LennardJones(temperature=temperature, **spec)
+
+
+def _build_backbone_factory(spec: dict, target):
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    if kind != "egnn":
+        raise ValueError(f"net kind {kind!r} is not ported")
+    from pita_torch.nets import EGNNBackbone
+
+    n_sd = spec.pop("n_spatial_dim", target.n_spatial_dim)
+    return lambda: EGNNBackbone(n_particles=target.n_particles, n_spatial_dim=n_sd,
+                                route="autograd", **spec)
+
+
+def _build_noise_schedule(spec: dict):
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    if kind != "elucidating":
+        raise ValueError(f"noise schedule {kind!r} is not ported")
+    from pita_torch.schedules import ElucidatingNoiseSchedule
+
+    return ElucidatingNoiseSchedule(**spec)
+
+
+def _build_annealing_factory(spec: dict):
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    from pita_torch import schedules as S
+
+    cls = {"constant": S.ConstantAnnealingSchedule, "linear": S.LinearAnnealingSchedule,
+           "sigmoid": S.SigmoidAnnealingSchedule}[kind]
+    return lambda af: cls(annealing_factor=af, **spec)
+
+
+def build_trainer(cfg: ExperimentConfig, resume: bool = False, device=None):
+    """The object graph (train.py:58-79) on ``device`` (CUDA by default,
+    raising without a GPU). ``resume`` keeps an existing metrics.csv."""
+    from pita_torch.io.logging import make_logger
+    from pita_torch.train.trainer import EnergyTempTrainer
+
+    target = _build_target(cfg.energy, temperature=cfg.trainer.temperatures[0])
+    out_dir = os.path.join(cfg.out_dir, cfg.name)
+    return EnergyTempTrainer(
+        target=target,
+        backbone_factory=_build_backbone_factory(cfg.net, target),
+        noise_schedule=_build_noise_schedule(cfg.noise_schedule),
+        annealing_schedule_factory=_build_annealing_factory(cfg.annealing_schedule),
+        loss_cfg=cfg.loss, integrator_cfg=cfg.integrator, cfg=cfg.trainer,
+        out_dir=out_dir, logger=make_logger(out_dir, cfg.logger, resume=resume),
+        device=device,
+    )

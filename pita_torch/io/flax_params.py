@@ -10,7 +10,10 @@ msgpack type.
 ``egnn_params_from_tree`` is the weight bridge: it mirrors
 ``pita_tpu/nets/egnn_fast.py:69-100 extract_params`` (including the Dense
 renumbering when ``attention=False``) and returns the state dict of
-``pita_torch.nets.egnn.EGNNBackbone``.
+``pita_torch.nets.egnn.EGNNBackbone``. ``trainer_state_from_tree`` extends
+it to a whole ``pita_tpu`` trainer state (the tree that
+``pita_tpu/io/checkpoint.py:_state_pytree`` builds, with numpy leaves) and
+returns ``pita_torch.train.trainer.EnergyTempTrainer.state_dict``'s layout.
 """
 
 import numpy as np
@@ -127,7 +130,7 @@ def egnn_params_from_tree(tree, n_layers: int, attention: bool = True) -> dict:
     call order, so without attention every index after 3 shifts down by one.
     """
     p = tree["params"]
-    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32))
+    t = lambda a: torch.as_tensor(np.array(a, dtype=np.float32))
     sd = {"w_emb": t(p["Dense_0"]["kernel"]), "b_emb": t(p["Dense_0"]["bias"])}
     off = 0 if attention else -1
     for l in range(n_layers):
@@ -159,6 +162,51 @@ def load_egnn_params(blob, n_layers: int, attention: bool = True) -> dict:
     return egnn_params_from_tree(msgpack_restore(data), n_layers, attention)
 
 
+def _adam_node(opt_state):
+    """The optax ScaleByAdamState inside a (nested tuple) optimizer state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            node = _adam_node(sub)
+            if node is not None:
+                return node
+    return None
+
+
+def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dict:
+    """A ``pita_tpu`` EnergyTempTrainer's state as numpy arrays → the port's
+    trainer state: the score and energy weights, their EMA weights and
+    ``num_updates``, Adam's ``count``, ``mu`` and ``nu`` (over the score and
+    the energy tree, as optax holds them), the stacked buffers and the epoch.
+    The generator's state is not carried over (JAX keys are not torch's)."""
+    sd = lambda tree: egnn_params_from_tree(tree, n_layers, attention)
+    adam = _adam_node(state["opt_state"])
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu) in the optimizer state")
+    moments = {}
+    for which in ("mu", "nu"):
+        score_tree, energy_tree = getattr(adam, which)
+        moments[which] = {**{f"score.{k}": v for k, v in sd(score_tree).items()},
+                          **{f"energy.{k}": v for k, v in sd(energy_tree).items()}}
+    b = state["buffers"]
+    t = lambda a: torch.as_tensor(np.array(a))
+    return {
+        "params_score": sd(state["params_score"]),
+        "params_energy": sd(state["params_energy"]),
+        "ema_score": {"params": sd(state["ema_score"]["params"]),
+                      "num_updates": int(state["ema_score"]["num_updates"])},
+        "ema_energy": {"params": sd(state["ema_energy"]["params"]),
+                       "num_updates": int(state["ema_energy"]["num_updates"])},
+        "opt_state": {"count": int(adam.count), **moments},
+        "buffers": {"x": t(b["x"]).float(), "energy": t(b["energy"]).float(),
+                    "force": t(b["force"]).float(), "pos": t(b["pos"]).long(),
+                    "size": t(b["size"]).long()},
+        "epoch": int(state["epoch"]),
+    }
+
+
 __all__ = [
     "W_FIELDS", "egnn_params_from_tree", "load_egnn_params", "msgpack_restore",
+    "trainer_state_from_tree",
 ]

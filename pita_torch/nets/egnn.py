@@ -1,23 +1,37 @@
 """E(3)-equivariant graph network (EGNN), dense formulation.
 
 Counterpart of ``pita_tpu/nets/egnn.py`` (``EGCL``, ``EGNNBackbone``) as
-computed by the fused Pallas path (``pita_tpu/ops/pallas/egnn_fwd.py``):
-each layer is ``pita_torch.ops.egnn_layer.EGCLFunction`` (kernels K2/K3 on
-CUDA, ``layer_step`` on the CPU). The node embedding (egnn_fwd.py:257-273),
-the edge attribute (:306-308) and the mean-free output velocity (:495-498)
-are plain torch outside the kernels, so the t-, β- and edge_attr→x gradients
-flow through autograd as they do in JAX.
+computed by the fused Pallas path (``pita_tpu/ops/pallas/egnn_fwd.py``). The
+node embedding (egnn_fwd.py:257-273), the edge attribute (:306-308) and the
+mean-free output velocity (:495-498) are plain torch outside the layers, so
+the t-, β- and edge_attr→x gradients flow through autograd as they do in JAX.
 
-Weights keep the JAX (in, out) layout and are loaded from a flax checkpoint
-through ``pita_torch.io.flax_params.egnn_params_from_tree``. The port is
-inference-only so far: parameters are created with ``requires_grad=False``.
+Each layer runs by one of two routes, which the caller chooses when it
+builds the backbone (``route=``); nothing switches between them on its own:
+
+- ``"kernels"`` (the sampler's): ``pita_torch.ops.egnn_layer.EGCLFunction``,
+  kernels K2/K3 on CUDA and ``layer_step`` on the CPU. Its weights do not
+  require grad, and it raises on weights that do: K3 gives no weight
+  cotangents and its backward is not differentiable again.
+- ``"autograd"`` (the trainer's): the plain ``layer_step`` under autograd on
+  any device, with trainable weights. It gives the weight gradients and the
+  second derivative in x and h that the energy losses need, as ``pita_tpu``
+  trains through its flax EGNN on XLA and not through the Pallas kernels.
+
+Weights keep the JAX (in, out) layout. They are loaded from a flax
+checkpoint through ``pita_torch.io.flax_params.egnn_params_from_tree``, or
+drawn from flax's initial distributions by ``reset_parameters``.
 """
+
+import math
 
 import torch
 from torch import nn
 
 from pita_torch.io.flax_params import W_FIELDS
-from pita_torch.ops.egnn_layer import EGCLFunction, pack_weights, pack_weights_tc
+from pita_torch.ops.egnn_layer import EGCLFunction, layer_step, pack_weights, pack_weights_tc
+
+ROUTES = ("kernels", "autograd")
 
 
 def _shapes(F):
@@ -28,15 +42,42 @@ def _shapes(F):
     )
 
 
+def lecun_normal_(w, generator=None):
+    """flax's default Dense kernel init: a normal truncated at ±2 standard
+    deviations, scaled so that the variance is 1/fan_in."""
+    std = math.sqrt(1.0 / w.shape[0]) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def _init_layer(layer, generator=None):
+    """The distributions of pita_tpu/nets/egnn.py:58-106: lecun-normal kernels
+    and zero biases, the coordinate head ``w_c2`` from
+    variance_scaling(0.001²·3, "fan_avg", "uniform") (:72-78)."""
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.startswith("b_"):
+                p.zero_()
+            elif name == "w_c2":
+                fan_avg = (p.shape[0] + p.shape[1]) / 2
+                limit = math.sqrt(3 * 0.001 ** 2 * 3.0 / fan_avg)
+                nn.init.uniform_(p, -limit, limit, generator=generator)
+            else:
+                lecun_normal_(p, generator)
+
+
 class EGCL(nn.Module):
     """One dense E_GCL layer; weights named as egnn_fwd.py:79-82 _W_FIELDS."""
 
     def __init__(self, hidden_nf: int, attention: bool = True, tanh: bool = True,
-                 coords_range: float = 5.0, compute_dtype=torch.float32):
+                 coords_range: float = 5.0, compute_dtype=torch.float32,
+                 route: str = "kernels"):
         super().__init__()
+        if route not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        self.route = route
         for name, shape in _shapes(hidden_nf).items():
             self.register_parameter(
-                name, nn.Parameter(torch.zeros(shape), requires_grad=False))
+                name, nn.Parameter(torch.zeros(shape), requires_grad=route == "autograd"))
         self.cfg = dict(attention=attention, tanh=tanh, coords_range=coords_range,
                         cd=compute_dtype)
         self._packed = {}
@@ -46,7 +87,8 @@ class EGCL(nn.Module):
 
     def packed(self, device, tc: bool = False) -> torch.Tensor:
         """The kernels' packed weight buffer on ``device`` (with ``tc`` the
-        bf16 one of the tensor-core VJP), rebuilt when a weight changes."""
+        bf16 one of the tensor-core VJP), rebuilt when a weight changes: an
+        in-place update (an optimizer step, ``copy_``) bumps its version."""
         stamp = tuple((p.data_ptr(), p._version) for p in self.weights().values())
         hit = self._packed.get((device, tc))
         if hit is None or hit[0] != stamp:
@@ -56,16 +98,22 @@ class EGCL(nn.Module):
         return hit[1]
 
     def forward(self, h, x, edge_attr):
+        if self.route == "autograd":
+            return layer_step(h, x, edge_attr, self.weights(), **self.cfg)
         return EGCLFunction.apply(h, x, edge_attr, self)
 
 
 class EGNNBackbone(nn.Module):
-    """EGNN dynamics: forward(t, x_flat, beta) -> mean-free displacement."""
+    """EGNN dynamics: forward(t, x_flat, beta) -> mean-free displacement.
+
+    Built with zero weights; ``reset_parameters`` draws flax's initial ones
+    and ``load_state_dict`` takes a checkpoint's.
+    """
 
     def __init__(self, n_particles: int, n_spatial_dim: int = 3, hidden_nf: int = 32,
                  n_layers: int = 3, attention: bool = True, tanh: bool = True,
                  condition_on_temperature: bool = True, coords_range: float = 15.0,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, route: str = "kernels"):
         super().__init__()
         if n_spatial_dim != 3:
             raise ValueError("the EGCL kernels take 3D coordinates")
@@ -75,13 +123,39 @@ class EGNNBackbone(nn.Module):
         self.n_layers = n_layers
         self.attention = attention
         self.condition_on_temperature = condition_on_temperature
+        self.route = route
         n_in = 2 if condition_on_temperature else 1
-        self.w_emb = nn.Parameter(torch.zeros(n_in, hidden_nf), requires_grad=False)
-        self.b_emb = nn.Parameter(torch.zeros(hidden_nf), requires_grad=False)
+        trainable = route == "autograd"
+        self.w_emb = nn.Parameter(torch.zeros(n_in, hidden_nf), requires_grad=trainable)
+        self.b_emb = nn.Parameter(torch.zeros(hidden_nf), requires_grad=trainable)
         self.layers = nn.ModuleList(
-            EGCL(hidden_nf, attention, tanh, coords_range / n_layers, compute_dtype)
+            EGCL(hidden_nf, attention, tanh, coords_range / n_layers, compute_dtype, route)
             for _ in range(n_layers)
         )
+        self._args = dict(n_particles=n_particles, n_spatial_dim=n_spatial_dim,
+                          hidden_nf=hidden_nf, n_layers=n_layers, attention=attention,
+                          tanh=tanh, condition_on_temperature=condition_on_temperature,
+                          coords_range=coords_range, compute_dtype=compute_dtype)
+
+    def reset_parameters(self, generator=None):
+        """flax's initial distributions (pita_tpu/nets/egnn.py): the
+        embedding Dense (:141) lecun-normal with a zero bias, each layer as
+        ``_init_layer``. Draws from ``generator`` on the weights' device."""
+        with torch.no_grad():
+            lecun_normal_(self.w_emb, generator)
+            self.b_emb.zero_()
+        for layer in self.layers:
+            _init_layer(layer, generator)
+        return self
+
+    def with_route(self, route: str) -> "EGNNBackbone":
+        """A new backbone of the same shape on ``route``, holding a copy of
+        these weights on their device."""
+        new = EGNNBackbone(**self._args, route=route).to(self.w_emb.device)
+        with torch.no_grad():
+            for p, q in zip(new.parameters(), self.parameters()):
+                p.copy_(q)
+        return new
 
     def embed(self, t, x, beta):
         """The node embedding h0 (B, N, F) of time and inverse temperature."""

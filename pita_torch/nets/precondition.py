@@ -7,6 +7,13 @@ score ``(D − x)/h``; scalar energy ``U_θ = <F(c_noise, c_in·x, β), c_in·x>
 and ``E_θ = (1−c_s)/(2h)·‖x‖² − c_out/(c_in·h)·U_θ``. The wrappers hold their
 backbone module (its weights), so no ``params`` argument is passed. Pinning
 to the true energy is not ported yet.
+
+``EnergyWrapper.grad_x``, ``denoiser`` and ``denoiser_and_energy``
+(precondition.py:136-160) take one joint gradient over (x, h) with
+``create_graph=True`` by default, so that a loss can differentiate the
+result again in the weights: that needs a backbone on the ``"autograd"``
+route (``pita_torch.nets.egnn``), since the kernel route's backward is
+differentiable once only.
 """
 
 import torch
@@ -31,14 +38,20 @@ class ScoreWrapper:
         self.backbone = backbone
         self.precondition_beta = precondition_beta
 
-    def denoiser(self, ht, xt, beta):
+    def denoiser(self, ht, xt, beta, return_score: bool = False):
+        """D(x); with ``return_score`` also (D − x)/h, the score of the
+        preconditioned denoiser (×β with β-preconditioning, :64-78)."""
         B = xt.shape[0]
         ht, beta = bcast(ht, B, xt), bcast(beta, B, xt)
         c_s, c_in, c_out, c_noise = coeffs(ht)
         F = self.backbone(c_noise, c_in[:, None] * xt, beta)
         D = c_s[:, None] * xt + c_out[:, None] * F
+        score = (D - xt) / ht[:, None]
         if self.precondition_beta:
             D = D * beta[:, None] + (1 - beta[:, None]) * xt
+            score = score * beta[:, None]
+        if return_score:
+            return D, score
         return D
 
     def score(self, ht, xt, beta):
@@ -66,3 +79,28 @@ class EnergyWrapper:
         if self.precondition_beta:
             E = E * beta
         return E
+
+    def grad_x(self, ht, xt, beta, create_graph: bool = True):
+        """∇ₓE_θ (energy_net.py:51-62)."""
+        with torch.enable_grad():
+            x = xt.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.energy(ht, x, beta).sum(), x,
+                                       create_graph=create_graph)
+        return g
+
+    def denoiser(self, ht, xt, beta, create_graph: bool = True):
+        """x − h·∇ₓE_θ (energy_net.py:64-66)."""
+        ht = bcast(ht, xt.shape[0], xt)
+        return xt - ht[:, None] * self.grad_x(ht, xt, beta, create_graph)
+
+    def denoiser_and_energy(self, ht, xt, beta, create_graph: bool = True):
+        """(denoiser, dU/dh, U) from one joint gradient over (x, h)
+        (energy_net.py:68-79). With ``create_graph`` all three stay
+        differentiable in the backbone's weights."""
+        ht = bcast(ht, xt.shape[0], xt)
+        with torch.enable_grad():
+            x = xt.detach().requires_grad_(True)
+            h = ht.detach().requires_grad_(True)
+            U = self.energy(h, x, beta)
+            nabla_U, dU_dh = torch.autograd.grad(U.sum(), (x, h), create_graph=create_graph)
+        return xt - ht[:, None] * nabla_U, dU_dh, U

@@ -2,8 +2,10 @@
 
 Counterpart of ``pita_tpu/schedules/noise.py:25-40,149-192``. Each schedule
 gives ``g(t)`` (diffusion coefficient), ``h(t) = ∫_0^t g(s)² ds`` and, where
-it has one, ``t(h)`` and ``dh_dt``. Only the Elucidating (Karras rho)
-schedule is ported so far; it is the one the LJ55 sampler uses.
+it has one, ``t(h)`` and ``dh_dt``; the training noise levels come from
+``sample_ln_sigma`` and the loss diagnostics bin them on ``ln_sigma_bins``.
+Only the Elucidating (Karras rho) schedule is ported so far; it is the one
+the LJ presets use.
 """
 
 import dataclasses
@@ -65,3 +67,16 @@ class ElucidatingNoiseSchedule(NoiseSchedule):
         return (
             -2 * self.rho * self.term2 * (self.term1 + (1 - t) * self.term2) ** (2 * self.rho - 1)
         )
+
+    def sample_ln_sigma(self, num_samples, normal=None, generator=None, device=None):
+        """ln σ ~ N(P_mean, P_std²) (noise.py:185-187). ``normal``: the
+        standard normal draw (num_samples,); drawn from ``generator`` if not
+        given."""
+        if normal is None:
+            normal = torch.randn(num_samples, generator=generator, device=device)
+        return normal * self.P_std + self.P_mean
+
+    def ln_sigma_bins(self, num_bins):
+        """Bin edges at P_mean ± 2 P_std (noise.py:189-192)."""
+        return torch.linspace(self.P_mean - 2 * self.P_std, self.P_mean + 2 * self.P_std,
+                              num_bins + 1)

@@ -1,9 +1,16 @@
 """Base Boltzmann target density.
 
-Counterpart of ``pita_tpu/targets/base.py:28-60`` (the density API only):
-``log_prob(x)`` ``(..., D) -> (...,)`` and ``log_prob_and_force(x)``, whose
-force is ∇ₓ log_prob by autograd. Temperature enters as ``-E(x)/T``.
+Counterpart of ``pita_tpu/targets/base.py:28-150`` for what the trainer
+reads: ``log_prob(x)`` ``(..., D) -> (...,)``, ``log_prob_and_force(x)``
+(force = ∇ₓ log_prob by autograd), ``at_temperature``, the train/val/test
+sets and ``interatomic_dist``. Temperature enters as ``-E(x)/T``.
+
+A set is built on first use by ``setup_{which}_set(device)`` and kept as a
+host array; ``sample_{which}_set`` draws rows uniformly with replacement
+from a ``torch.Generator`` and returns them on the generator's device.
 """
+
+import copy
 
 import torch
 
@@ -18,6 +25,10 @@ class Target:
     temperature: float = 1.0
     name: str = "target"
 
+    _train_set = None
+    _val_set = None
+    _test_set = None
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -28,3 +39,53 @@ class Target:
             lp = self.log_prob(xx)
             (force,) = torch.autograd.grad(lp.sum(), xx)
         return lp.detach(), force
+
+    def at_temperature(self, temperature: float) -> "Target":
+        """A copy of this target at another temperature, with no data set
+        cached (a set belongs to the temperature it was sampled at)."""
+        new = copy.copy(self)
+        new.temperature = float(temperature)
+        new._train_set = new._val_set = new._test_set = None
+        return new
+
+    # ---- data sets ----
+
+    def setup_train_set(self, device=None):
+        return None
+
+    def setup_val_set(self, device=None):
+        return None
+
+    def setup_test_set(self, device=None):
+        return None
+
+    def _sample_set(self, which: str, num: int, generator):
+        data = getattr(self, f"_{which}_set")
+        if data is None:
+            data = getattr(self, f"setup_{which}_set")(generator.device)
+            setattr(self, f"_{which}_set", data)
+        if data is None:
+            raise ValueError(f"{self.name} has no {which} set")
+        idx = torch.randint(0, data.shape[0], (num,), generator=generator,
+                            device=generator.device)
+        return torch.as_tensor(data, device=generator.device)[idx]
+
+    def sample_train_set(self, num: int, generator):
+        return self._sample_set("train", num, generator)
+
+    def sample_val_set(self, num: int, generator):
+        return self._sample_set("val", num, generator)
+
+    def sample_test_set(self, num: int, generator):
+        return self._sample_set("test", num, generator)
+
+    # ---- geometry (molecules) ----
+
+    def interatomic_dist(self, x: torch.Tensor) -> torch.Tensor:
+        """Upper-triangle pairwise distances, (B, n_pairs)
+        (base_molecule_energy_function.py:104-118)."""
+        B = x.shape[0]
+        xr = x.reshape(B, self.n_particles, self.n_spatial_dim)
+        d2 = ((xr[:, :, None, :] - xr[:, None, :, :]) ** 2).sum(-1)
+        iu = torch.triu_indices(self.n_particles, self.n_particles, 1, device=x.device)
+        return torch.sqrt(d2[:, iu[0], iu[1]])

@@ -404,3 +404,40 @@ def test_exact_generic_divergence_on_the_card(cuda):
     _, tr_op = egnn_jacobian_trace(bb, t, x, 1.0)
     torch.cuda.synchronize()
     assert (tr_rev - tr_op).abs().max() <= 1e-4 * tr_op.abs().max()
+
+
+def test_training_step_repacks_the_sampler_kernels(cuda, tmp_path):
+    """After an optimizer step on the card, the EMA shadow's layers (the
+    sampler's weights, updated in place) repack their kernel buffers: K2 and
+    K3 on them match their plain versions on the updated weights, f32."""
+    from pita_torch.configs import build_trainer, compose
+
+    cfg = compose("lj13", debug="short", overrides={
+        "trainer.temperatures": (4.0, 3.0), "trainer.num_epochs_per_temp": (2,),
+        "trainer.buffer_capacity": 512, "trainer.init_from_prior": True,
+        "trainer.num_init_samples": 64, "trainer.ema_decay": 0.5, "net.hidden_nf": 16,
+        "net.n_layers": 2, "out_dir": str(tmp_path)})
+    tr = build_trainer(cfg, device=cuda)
+    tr.populate_initial_buffer()
+    layer = tr.ema_score.module.layers[1]
+    before = layer.packed(cuda).clone()
+    tr.train_step(0)
+    assert not torch.equal(before, layer.packed(cuda))
+    w = layer.weights()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(64, 13, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(64, 13, 16, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    gh, gx = torch.randn_like(h), torch.randn_like(x)
+    n_fwd, n_bwd = el.egnn_layer_forward.launches, el.egnn_layer_backward.launches
+    with torch.no_grad():
+        ho, xo = layer(h, x, ea)
+        ref = el.layer_step(h, x, ea, w, **layer.cfg)
+    dh, dx, dea = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=layer.packed(cuda),
+                                         **layer.cfg)
+    ref_b = el.layer_vjp(h, x, ea, gh, gx, w, **layer.cfg)
+    assert (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches) == (
+        n_fwd + 1, n_bwd + 1)
+    torch.cuda.synchronize()
+    for a, b in zip((ho, xo, dh, dx, dea), (*ref, *ref_b)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
