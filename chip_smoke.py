@@ -9,7 +9,12 @@ Phases, each printing lines, each failing the run on disagreement:
   1. build the CUDA kernels of pita_torch/csrc/ with nvcc (sm_90a), one
      nvcc per source, all started together;
   2. K1 (LJ log_prob + force) against its plain version, LJ55 with the
-     spline and LJ13 without, 2048 configurations;
+     spline and LJ13 without, 2048 configurations, the first K1 too, the new
+     one launched twice for a bitwise-equal result; then the new K1 and the
+     first one timed in turns at LJ55's 256, 512 and 2048 chains and LJ13's
+     512: device time alone (torch.profiler), CUDA-event time a launch and
+     the wrapper's host time a call (1,000 calls, no synchronization), and
+     the new K1's device time at every lane count beside the rule's pick;
   3. K2 (EGCL forward) against layer_step and K3 (EGCL VJP) against autograd
      through layer_step: bench weights, each of the 3 layers, 2048 chains,
      N=55, in f32 (the scalar K2 and K3) and bf16 (the tensor-core K2 and
@@ -24,7 +29,8 @@ Phases, each printing lines, each failing the run on disagreement:
   5. its quality run: 512 chains x 400 steps, final resample, 30 adaptive
      MALA steps; energy W2 against the ground-truth samples and against the
      exact-divergence population of bench_lj55_exact_energies.npy; the K1
-     counter must move; fails on non-finite samples or W2 > 2 sigma_GT;
+     counter must move, the first K1's not; fails on non-finite samples or
+     W2 > 2 sigma_GT;
   6. K5 (G-operator contraction, the tensor-core kernel) against its plain
      version (materialized G, bf16-rounded, f32 einsum): primals of layers 1
      and 2 of the bench score net at t = 0.5 on perturbed ground-truth samples
@@ -64,7 +70,8 @@ Phases, each printing lines, each failing the run on disagreement:
      of the gate of phase 5 must pass;
  11. the LJ55 training ladder through pita_torch.configs.build_trainer (the
      lj55 preset: N = 55, hidden 32, 3 layers, f32): the rung-0 train set by
-     generate_lj_dataset (512 chains, 12,000 warmup steps; K1 must launch),
+     generate_lj_dataset (512 chains, 12,000 warmup steps; K1 must launch,
+     the first K1 never), then the same generator timed by each K1 in turns,
      2 epochs x 25 batches of 256 on the autograd route (finite losses, no
      kernel launched, one step on the card against the same step on the CPU
      at batch 64, and the EMA's kernel buffers repacked), one rung
@@ -72,7 +79,8 @@ Phases, each printing lines, each failing the run on disagreement:
      steps; the f32 K1, K2, K3 and K4 must launch and no tensor-core kernel;
      finite weights and energies; the rung-1 buffer filled; no escalated
      retry), K1 and the f32 K2/K3/K4 compared and timed at those launches
-     (K1 also by torch.profiler), a fill step timed by each route, and a
+     (K1's device time also by torch.profiler, which must find it), a fill
+     step timed by each route, and a
      checkpoint saved, restored into a fresh trainer and compared bitwise,
      saved over, and a save interrupted before its rename.
 
@@ -167,42 +175,145 @@ def egcl_bound(label, n_bytes, n_ops, peak_ops, n_edges, F):
     return bnd
 
 
+# K1's least work, counted per unordered pair (the pair energy and the pair
+# force are symmetric, so a pair need be computed once): f32 instructions
+# (an FMA is one) for the difference (3), r^2 (3), s^3 and s^6 from
+# s = (rm/r)^2 (3), the energy (2), e'(r^2) (2) and the force on both ends
+# (6); with the spline a compare and two selects (3) per pair and, for each
+# pair below r_min in the data, r, dx and the cubic and its derivative (8).
+# SFU: one reciprocal per pair and one square root per pair below r_min.
+# Per particle: the centre of mass, the oscillator and the force's scaling.
+LJ_F32_PER_PAIR = 19
+LJ_F32_SPLINE_SELECT = 3
+LJ_F32_PER_CLOSE_PAIR = 8
+LJ_F32_PER_PARTICLE = 15
+
+
+def lj_kwargs(target):
+    return dict(eps=target.eps, rm=target.rm, oscillator_scale=target._osc,
+                energy_factor=target.energy_factor, temperature=target.temperature,
+                spline=target.spline)
+
+
+def lj_bound(x, target, label, phase):
+    """K1's bound at the input x: the largest of its bytes (x read once,
+    log_prob and force written once), its f32 instructions and its SFU
+    operations, each term printed and the largest named."""
+    import torch
+
+    N, B = target.n_particles, x.shape[0]
+    pairs = B * N * (N - 1) // 2
+    f32 = LJ_F32_PER_PAIR * pairs + LJ_F32_PER_PARTICLE * B * N
+    sfu = pairs
+    close = 0
+    if target.spline is not None:
+        xr = x.reshape(B, N, 3)
+        d2 = ((xr[:, :, None] - xr[:, None]) ** 2).sum(-1)
+        d2.diagonal(dim1=1, dim2=2).fill_(float("inf"))
+        close = int((d2 < target.spline[4] ** 2).sum()) // 2
+        f32 += LJ_F32_SPLINE_SELECT * pairs + LJ_F32_PER_CLOSE_PAIR * close
+        sfu += close
+    n_bytes = 4 * (2 * B * N * 3 + B)
+    terms = {"bytes": n_bytes / PEAK_BYTES * 1e3, "f32 instructions": f32 / PEAK_FP32_OPS * 1e3,
+             "SFU": sfu / PEAK_SFU * 1e3}
+    name = max(terms, key=terms.get)
+    bnd, by = bound_ms(n_bytes, 0, PEAK_F32, sfu, f32)
+    print(f"[phase {phase}] bound of K1 at {label} (B={B}, N={N}): {pairs} unordered pairs, "
+          f"{close} below r_min; " + ", ".join(f"{k} {v:.5f} ms" for k, v in terms.items())
+          + f" -> {bnd:.5f} ms ({name})")
+    return bnd, by
+
+
+def host_us(fn, n=1000):
+    """Host microseconds per call over n calls with no synchronization."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def phase_lj(data):
+    """Phase 2: the new K1 and the first one against the plain version at
+    2048 chains (LJ55 with the spline, LJ13), the new one twice for a
+    bitwise-equal result; then both timed in turns (new, first, first, new)
+    at LJ55's 256, 512 and 2048 chains and LJ13's 512: device time alone
+    (torch.profiler), CUDA-event time a launch, the wrapper's host time; and
+    the new one's device time at every lane count the kernel takes."""
     import torch
 
     from pita_torch.ops import lj as ljop
     from pita_torch.targets import LJ13, LJ55
 
-    out = {}
     gen = torch.Generator("cuda").manual_seed(1)
     base = torch.as_tensor(data, device="cuda").repeat(2, 1)  # (2048, 165)
     x55 = (base + 0.01 * torch.randn(base.shape, generator=gen, device="cuda")).contiguous()
     x13 = x55[:, :39].contiguous()
-    for name, tgt, x in (("lj55_spline", LJ55(smooth=True, temperature=2.0 / 1.2), x55),
-                         ("lj13", LJ13(), x13)):
-        kw = dict(eps=tgt.eps, rm=tgt.rm, oscillator_scale=tgt._osc,
-                  energy_factor=tgt.energy_factor, temperature=tgt.temperature,
-                  spline=tgt.spline)
-        lp_k, f_k = ljop.lj_log_prob_and_force(x, tgt.n_particles, **kw)
-        lp_p, f_p = ljop.lj_log_prob_and_force_plain(x, tgt.n_particles, **kw)
-        torch.cuda.synchronize()
-        (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k, lp_p), rel_err(f_k, f_p)
-        print(f"[phase 2] K1 {name} B={x.shape[0]}: logp max abs {a_lp:.3e} rel {r_lp:.3e}; "
-              f"force max abs {a_f:.3e} rel {r_f:.3e} (tol rel {TOL_LJ})")
-        if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
-            fail(f"K1 {name} disagrees with its plain version")
-        if name == "lj55_spline":
-            B, N = x.shape[0], tgt.n_particles
-            ms = cuda_ms(lambda: ljop.lj_log_prob_and_force(x, N, **kw))
-            plain = cuda_ms(lambda: ljop.lj_log_prob_and_force_plain(x, N, **kw), reps=5)
-            # 26 f32 operations per ordered pair (distance, powers, energy,
-            # force accumulation), x read once, logp and force written once
-            bnd, by = bound_ms(4 * (2 * B * N * 3 + B), 26 * B * N * (N - 1), PEAK_F32)
-            out = dict(max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain, bound_ms=bnd,
-                       bound_by=by)
-            print(f"[phase 2] K1 lj55 B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bnd:.4f} ms ({by})")
-    return out
+    t55, t13 = LJ55(smooth=True, temperature=2.0 / 1.2), LJ13()
+    errs = {}
+    for name, tgt, x in (("lj55_spline", t55, x55), ("lj13", t13, x13)):
+        N, kw = tgt.n_particles, lj_kwargs(tgt)
+        lp_p, f_p = ljop.lj_log_prob_and_force_plain(x, N, **kw)
+        for which, fn in (("new", ljop.lj_log_prob_and_force), ("first", ljop._lj_scalar)):
+            lp_k, f_k = fn(x, N, **kw)
+            torch.cuda.synchronize()
+            (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k, lp_p), rel_err(f_k, f_p)
+            print(f"[phase 2] K1 ({which}) {name} B={x.shape[0]}: logp max abs {a_lp:.3e} rel "
+                  f"{r_lp:.3e}; force max abs {a_f:.3e} rel {r_f:.3e} (tol rel {TOL_LJ})")
+            if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
+                fail(f"K1 ({which}) {name} disagrees with its plain version")
+            errs[which] = max(errs.get(which, 0.0), a_lp, a_f)
+        once, again = (ljop.lj_log_prob_and_force(x, N, **kw) for _ in range(2))
+        same = all(torch.equal(a, b) for a, b in zip(once, again))
+        print(f"[phase 2] K1 {name}: two launches bitwise equal: {same}")
+        if not same:
+            fail(f"K1 {name}: two launches on the same input differ")
+
+    out, rule = {}, ljop.lanes_per_particle
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for name, tgt, xs, B in (("lj55_spline", t55, x55, 256), ("lj55_spline", t55, x55, 512),
+                             ("lj55_spline", t55, x55, 2048), ("lj13", t13, x13, 512)):
+        N, kw, x = tgt.n_particles, lj_kwargs(tgt), xs[:B].contiguous()
+        runs = {"new": (lambda: ljop.lj_log_prob_and_force(x, N, **kw), "lj_pairs_kernel"),
+                "first": (lambda: ljop._lj_scalar(x, N, **kw), "lj_scalar_kernel")}
+        dev, ev, host = ({k: [] for k in runs} for _ in range(3))
+        for which in ("new", "first", "first", "new"):
+            fn, key = runs[which]
+            dev[which].append(profiled_ms(fn, key))
+            ev[which].append(cuda_ms(fn, reps=200, warmup=10))
+            host[which].append(host_us(fn))
+        # the new K1's device time at each lane count, beside the rule's pick
+        pick, by_lanes = ljop.lanes_per_particle(N, B, torch.cuda.get_device_properties(0)
+                                                 .multi_processor_count), {}
+        try:
+            for lanes in (1, 2, 4, 8):
+                ljop.lanes_per_particle = lambda n, b, sms, lanes=lanes: lanes
+                by_lanes[lanes] = profiled_ms(runs["new"][0], "lj_pairs_kernel")
+        finally:
+            ljop.lanes_per_particle = rule
+        print(f"[phase 2] K1 {name} B={B}: device time alone by lanes per particle "
+              + ", ".join(f"L={k} {fmt(v)}" for k, v in by_lanes.items())
+              + f" ms; the rule picks L={pick}")
+        plain = cuda_ms(lambda: ljop.lj_log_prob_and_force_plain(x, N, **kw), reps=5)
+        bnd, by = lj_bound(x, tgt, f"{name} {B} chains", 2)
+        print(f"[phase 2] K1 {name} B={B} (new / first, in turns): device time alone "
+              + " / ".join(",".join(fmt(v) for v in dev[k]) for k in runs)
+              + " ms; CUDA events " + " / ".join(",".join(f"{v:.4f}" for v in ev[k]) for k in runs)
+              + " ms a launch; wrapper host " + " / ".join(",".join(f"{v:.2f}" for v in host[k])
+                                                          for k in runs)
+              + f" us a call; plain {plain:.4f} ms; bound {bnd:.5f} ms ({by})")
+        if None in dev["new"]:
+            fail(f"K1 {name} B={B}: no lj_pairs_kernel row in the profile")
+        if name == "lj55_spline" and B == 2048:
+            mean = lambda v: sum(v) / len(v)
+            out = {which: dict(max_abs_err=errs[which], ms=mean(ev[which]), plain_ms=plain,
+                               bound_ms=bnd, bound_by=by) for which in runs}
+    return out["new"], out["first"]
 
 
 def phase_egcl(wl, data):
@@ -848,7 +959,7 @@ def reset_counts(ops):
 # the port's own kernels, by their names in a profile
 OWN_KERNELS = ("egcl_fwd_kernel", "egcl_bwd_kernel", "egcl_fwd_tc_kernel", "egcl_bwd_tc_kernel",
                "egcl_tan_kernel", "egcl_tan_tc_kernel", "g_op_kernel", "g_op_tc_kernel",
-               "pack_panel_kernel", "lj_kernel")
+               "pack_panel_kernel", "lj_pairs_kernel", "lj_scalar_kernel")
 
 
 def profile_main_path(wl, x1, cfg, label, plain_top=False):
@@ -987,15 +1098,13 @@ def profiled_ms(run, key, n=50):
 
 def k1_entry(target, x, label, launches):
     """K1 against its plain version at the shape x, its CUDA-event and
-    profiled time per launch, and its bound (as phase 2 counts it)."""
+    profiled time per launch, and its bound (lj_bound, as phase 2 counts it)."""
     import torch
 
     from pita_torch.ops import lj as ljop
 
     N, B = target.n_particles, x.shape[0]
-    kw = dict(eps=target.eps, rm=target.rm, oscillator_scale=target._osc,
-              energy_factor=target.energy_factor, temperature=target.temperature,
-              spline=target.spline)
+    kw = lj_kwargs(target)
     lp_k, f_k = ljop.lj_log_prob_and_force(x, N, **kw)
     lp_p, f_p = ljop.lj_log_prob_and_force_plain(x, N, **kw)
     torch.cuda.synchronize()
@@ -1004,23 +1113,66 @@ def k1_entry(target, x, label, launches):
         fail(f"K1 disagrees with its plain version at {label}")
     run = lambda: ljop.lj_log_prob_and_force(x, N, **kw)
     ms = cuda_ms(run, reps=50)
-    dev_ms = profiled_ms(run, "lj_kernel")
+    dev_ms = profiled_ms(run, "lj_pairs_kernel")
     # the floor of a launch on the device: a one-element PyTorch add
     one = torch.zeros(1, device=x.device)
     floor_ms = profiled_ms(lambda: one.add_(1.0), "elementwise")
     plain = cuda_ms(lambda: ljop.lj_log_prob_and_force_plain(x, N, **kw), reps=5)
-    bnd, by = bound_ms(4 * (2 * B * N * 3 + B), 26 * B * N * (N - 1), PEAK_F32)
+    bnd, by = lj_bound(x, target, label, 11)
     ms_or = lambda v: "not measured (no kernel row)" if v is None else f"{v:.4f} ms"
     dev, floor = ms_or(dev_ms), ms_or(floor_ms)
     print(f"[phase 11] K1 at {label} (B={B}): rel err logp {r_lp:.2e} force {r_f:.2e} "
           f"(tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone {dev} "
           f"(torch.profiler; a one-element add's {floor}), plain {plain:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}); "
+          f"{bnd:.5f} ms ({by}); "
           f"{launches} launches")
+    if dev_ms is None:
+        fail(f"K1's device time at {label} was not measured (no lj_pairs_kernel row)")
     return dict(name=f"lj_log_prob_and_force ({label})", route="cuda",
                 source="pita_torch/csrc/lj.cu", replaces="pita_tpu/ops/pallas/lj.py:108",
                 launches=launches, max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+class _FirstK1:
+    """A target whose log_prob_and_force runs the first K1 (the yardstick)."""
+
+    def __init__(self, target):
+        self.target = target
+
+    def __getattr__(self, name):
+        return getattr(self.target, name)
+
+    def log_prob_and_force(self, x):
+        from pita_torch.ops import lj as ljop
+
+        return ljop._lj_scalar(x, self.target.n_particles, **lj_kwargs(self.target))
+
+
+def train_set_in_turns(target):
+    """The rung-0 train set's generator (seed 101, 10,000 samples, 512
+    chains) by each K1 in turns, first, new, new, first: seconds and
+    launches. The MALA step's host time around K1 sets its pace."""
+    import torch
+
+    from pita_torch.baselines.mcmc import generate_lj_dataset
+    from pita_torch.ops import lj as ljop
+
+    secs = {"first": [], "new": []}
+    for which in ("first", "new", "new", "first"):
+        before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_lj_dataset(_FirstK1(target) if which == "first" else target, 10000, seed=101,
+                            device="cuda")
+        torch.cuda.synchronize()
+        secs[which].append(time.perf_counter() - t0)
+        n = (ljop.lj_log_prob_and_force.launches - before[0], ljop._lj_scalar.launches - before[1])
+        if n != ((0, 18027) if which == "first" else (18027, 0)):
+            fail(f"the train set by the {which} K1 launched (new, first) = {n} K1s")
+    print("[phase 11] train set by each K1 in turns (first, new, new, first; 18,027 launches "
+          "each): " + ", ".join(f"{w} {' / '.join(f'{v:.2f}' for v in secs[w])} s"
+                                for w in secs))
 
 
 def fill_layer_entries(tr, x_flat, counts):
@@ -1183,6 +1335,9 @@ def phase_training(kernels, profile=False):
               f"{float(e_set.min()):.4f}, max {float(e_set.max()):.4f}")
         if k1_set == 0 or not bool(torch.isfinite(e_set).all()) or float(e_set.max()) > 1e3:
             fail("the train set did not run through K1 or has non-finite or unhealthy energies")
+        if counts()["_lj_scalar"]:
+            fail("the train set launched the first K1")
+        train_set_in_turns(tr.targets[0])
 
         # 2. training: 2 epochs x 25 batches of 256, autograd route
         reset_counts(kernels)
@@ -1258,7 +1413,7 @@ def phase_training(kernels, profile=False):
             if fill_counts[k] == 0:
                 fail(f"the f32 fill did not launch {k}")
         for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc", "egnn_layer_tangent_tc",
-                  "g_operator_contract", "_contract_scalar"):
+                  "g_operator_contract", "_contract_scalar", "_lj_scalar"):
             if fill_counts[k]:
                 fail(f"the f32 fill launched {k}")
         if buf1 == 0 or not math.isfinite(m["val/ess"]) or not math.isfinite(
@@ -1358,7 +1513,7 @@ def main():
                                            egnn_layer_forward, egnn_layer_forward_tc)
     from pita_torch.ops.egnn_tangent import egnn_layer_tangent, egnn_layer_tangent_tc
     from pita_torch.ops.g_op import _contract_scalar, g_operator_contract
-    from pita_torch.ops.lj import lj_log_prob_and_force
+    from pita_torch.ops.lj import _lj_scalar, lj_log_prob_and_force
     from pita_torch.sampler import integrate_sde
 
     # phase 1
@@ -1371,7 +1526,7 @@ def main():
 
     kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
                egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
-               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar)
+               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar, _lj_scalar)
     if "--training-only" in sys.argv[1:]:  # quick check of the training path
         phase_training(kernels, "--profile" in sys.argv[1:])
         return 0
@@ -1382,7 +1537,7 @@ def main():
     profile = "--profile" in sys.argv[1:]
 
     # phases 2, 3, 6, 7: every kernel against its plain version
-    k1 = phase_lj(data)
+    k1, k1_scalar = phase_lj(data)
     eg = phase_egcl(wl, data)
     k5, k5_scalar = phase_g_op(wl, data)
     k4, k4_scalar = phase_tangent(wl, wl32, data)
@@ -1433,8 +1588,8 @@ def main():
         w2_gt, spread, _ = quality(wl, data, seed)
         q_counts = {f.__name__: f.launches for f in kernels}
         print(f"[phase 5] launches {q_counts}")
-        if q_counts["lj_log_prob_and_force"] == 0:
-            fail("MALA did not launch the LJ kernel")
+        if q_counts["lj_log_prob_and_force"] == 0 or q_counts["_lj_scalar"]:
+            fail("MALA did not launch the LJ kernel, or launched the first one")
         if seed == 0 and w2_gt > 2 * spread:
             fail(f"energy W2 against ground truth {w2_gt:.3f} > 2 sigma_GT {2 * spread:.3f}")
 
@@ -1487,6 +1642,11 @@ def main():
         dict(name="lj_log_prob_and_force", route="cuda", source=src + "lj.cu",
              replaces="pita_tpu/ops/pallas/lj.py:108",
              launches=q_counts["lj_log_prob_and_force"], library_ms=None, **k1),
+        # the first K1, timed as the yardstick; phases 5 and 11 require that
+        # no path launches it
+        dict(name="lj_log_prob_and_force_scalar", route="cuda", source=src + "lj.cu",
+             replaces="pita_tpu/ops/pallas/lj.py:108", launches=q_counts["_lj_scalar"],
+             library_ms=None, **k1_scalar),
         dict(name="egcl_forward_tc", route="cuda", source=src + "egnn_layer_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:318",
              launches=main_counts["egnn_layer_forward_tc"],

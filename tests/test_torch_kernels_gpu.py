@@ -6,6 +6,8 @@ imports neither JAX nor pita_tpu, so on a machine without them it runs with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,102 @@ def test_lj_kernel_matches_plain(cuda, n, smooth):
     # f32 sums in another order; closed-form vs autograd force
     assert (lp_k - lp_p).abs().max() <= 1e-5 * lp_p.abs().max()
     assert (f_k - f_p).abs().max() <= 1e-5 * f_p.abs().max()
+
+
+def _lj_inputs(n, B, seed, device, close=True):
+    """Jittered lattices; with ``close`` every other configuration has
+    particle 1 at r = 0.5 from particle 0, below the spline's r_min."""
+    x = _lattice(n, B, 0.15, seed).reshape(B, n, 3)
+    if close:
+        x[::2, 1] = x[::2, 0] + np.array([0.5, 0.0, 0.0], dtype=np.float32)
+    return torch.as_tensor(x.reshape(B, n * 3), device=device)
+
+
+def _lj_kw(t):
+    return dict(eps=t.eps, rm=t.rm, oscillator_scale=t._osc, energy_factor=t.energy_factor,
+                temperature=t.temperature, spline=t.spline)
+
+
+def _lj_close(k, p, tol=1e-5):
+    # f32 sums in another order, an approximate reciprocal (~7e-7 in r^-12);
+    # closed-form vs autograd force
+    return all((a - b).abs().max() <= tol * b.abs().max() for a, b in zip(k, p))
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+@pytest.mark.parametrize("n", [13, 55])
+@pytest.mark.parametrize("B", [1, 7, 300, 2048])
+def test_lj_pairs_kernel_matches_plain(cuda, B, n, smooth):
+    """The new K1 at every geometry the wrapper picks for these (N, B), the
+    spline's branch taken in every other configuration."""
+    x = _lj_inputs(n, B, seed=B + n, device=cuda)
+    kw = _lj_kw(LennardJones(n, smooth=smooth, temperature=1.3))
+    before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
+    got = ljop.lj_log_prob_and_force(x, n, **kw)
+    assert (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches) == (
+        before[0] + 1, before[1])
+    ref = ljop.lj_log_prob_and_force_plain(x, n, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B,) and got[1].shape == (B, 3 * n)
+    assert _lj_close(got, ref)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [2, 13, 55])
+def test_lj_pairs_kernel_every_lane_count(cuda, monkeypatch, n, lanes):
+    """Each lane count the kernel takes, whatever the wrapper would pick, on
+    target constants that are not 1 (the folded rm, eps and factors)."""
+    monkeypatch.setattr(ljop, "lanes_per_particle", lambda n_, b_, sms: lanes)
+    x = _lj_inputs(n, 9, seed=lanes, device=cuda)
+    t = LennardJones(n, smooth=True, rm=1.2, eps=0.7, energy_factor=0.5,
+                     oscillator_scale=2.0, temperature=1.3)
+    got = ljop.lj_log_prob_and_force(x, n, **_lj_kw(t))
+    ref = ljop.lj_log_prob_and_force_plain(x, n, **_lj_kw(t))
+    torch.cuda.synchronize()
+    assert _lj_close(got, ref)
+
+
+def test_lj_pairs_kernel_is_deterministic(cuda):
+    """Every sum runs in a fixed order, no atomics: two launches on the same
+    input are bitwise equal."""
+    x = _lj_inputs(55, 300, seed=4, device=cuda)
+    kw = _lj_kw(LennardJones(55, smooth=True))
+    got, again = ljop.lj_log_prob_and_force(x, 55, **kw), ljop.lj_log_prob_and_force(x, 55, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("n,smooth,B", [(55, True, 300), (13, False, 7)])
+def test_lj_scalar_kernel_matches_plain(cuda, n, smooth, B):
+    """The first K1, kept as the yardstick, still computes the function."""
+    x = _lj_inputs(n, B, seed=5, device=cuda)
+    kw = _lj_kw(LennardJones(n, smooth=smooth, temperature=1.7))
+    before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
+    got = ljop._lj_scalar(x, n, **kw)
+    assert (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches) == (
+        before[0], before[1] + 1)
+    ref = ljop.lj_log_prob_and_force_plain(x, n, **kw)
+    torch.cuda.synchronize()
+    assert _lj_close(got, ref)
+
+
+def test_lj_pairs_kernel_refuses_what_it_cannot_take(cuda):
+    n = ljop.MAX_N + 1
+    x = torch.randn(2, 3 * n, device=cuda)
+    before = ljop.lj_log_prob_and_force.launches
+    with pytest.raises(ValueError, match=f"N <= {ljop.MAX_N}"):
+        ljop.lj_log_prob_and_force(x, n)
+    with pytest.raises(ValueError, match="rm > 0"):
+        ljop.lj_log_prob_and_force(x[:, :39], 13, rm=0.0)
+    assert ljop.lj_log_prob_and_force.launches == before
+
+
+def test_lj_limits_match_the_kernel(cuda):
+    """The limits and the packed layout the wrapper uses are the kernel's."""
+    lib = ljop._lib()
+    assert lib.pita_lj_max_n() == ljop.MAX_N
+    assert lib.pita_lj_max_group() == ljop.MAX_GROUP
+    assert lib.pita_lj_params_bytes() == ctypes.sizeof(ljop._LJParams)
 
 
 def _bench_layer(device):
