@@ -82,14 +82,33 @@ Phases, each printing lines, each failing the run on disagreement:
      (K1's device time also by torch.profiler, which must find it), a fill
      step timed by each route, and a
      checkpoint saved, restored into a fresh trainer and compared bitwise,
-     saved over, and a save interrupted before its rename.
+     saved over, and a save interrupted before its rename;
+ 12. the training tools: DEM pretraining on the lj55 preset with the iDEM
+     target through fit (2 epochs x 10 steps of 512 chains x 1,000 probes:
+     K1 once a step at 512,000 configurations; one plain-SDE refill of
+     buffer 0, 2,000 chains x 1,000 steps: the f32 K2 3,000 times and no
+     K3, K4 or tensor-core kernel; finite losses and val/dem metrics), a
+     DEM step profiled, the iDEM target by K1 against its plain version on
+     the first 8 chains, K1 at that launch and the f32 K2 at the refill's
+     2,000 chains against their plain versions and timed, a force-based
+     pretraining loss on the card against the CPU; 100 HMC steps of 10
+     leapfrogs at T = 1 (K1 1,201 times, the first K1 never); the ten-run
+     protocol of scripts/make_ground_truth.py for LJ55_temp_1.0_val (R-hat
+     < 1.05, within that script's tolerance of the committed diagnostics);
+     eval_cli on phase 11's checkpoint (256 chains x 100 steps, the K4
+     route, one ladder pair), train_cli -m over two seeds and train_cli with
+     a YAML overlay (geometric schedule, score only), LJ13 debug=short cut
+     to 2 epochs without the test phase.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
 off for matmuls and convolutions, so float32 stays float32.
 
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
---training-only runs phases 1 and 11 only;
+--training-only runs phases 1 and 11 only; --tools-only runs phases 1 and
+12 only (eval_cli then restores the DEM trainer's checkpoint);
+--protocol-assets runs phase 1 and phase 12's protocol gate on every
+committed LJ55 asset of data/ (a measurement of the gate, not a check);
 --profile adds a torch.profiler breakdown of each timed main path (for the
 K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
@@ -100,6 +119,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -199,18 +219,17 @@ def lj_bound(x, target, label, phase):
     """K1's bound at the input x: the largest of its bytes (x read once,
     log_prob and force written once), its f32 instructions and its SFU
     operations, each term printed and the largest named."""
-    import torch
-
     N, B = target.n_particles, x.shape[0]
     pairs = B * N * (N - 1) // 2
     f32 = LJ_F32_PER_PAIR * pairs + LJ_F32_PER_PARTICLE * B * N
     sfu = pairs
     close = 0
     if target.spline is not None:
-        xr = x.reshape(B, N, 3)
-        d2 = ((xr[:, :, None] - xr[:, None]) ** 2).sum(-1)
-        d2.diagonal(dim1=1, dim2=2).fill_(float("inf"))
-        close = int((d2 < target.spline[4] ** 2).sum()) // 2
+        for i in range(0, B, 8192):  # (chunk, N, N) distances at a time
+            xr = x[i:i + 8192].reshape(-1, N, 3)
+            d2 = ((xr[:, :, None] - xr[:, None]) ** 2).sum(-1)
+            d2.diagonal(dim1=1, dim2=2).fill_(float("inf"))
+            close += int((d2 < target.spline[4] ** 2).sum()) // 2
         f32 += LJ_F32_SPLINE_SELECT * pairs + LJ_F32_PER_CLOSE_PAIR * close
         sfu += close
     n_bytes = 4 * (2 * B * N * 3 + B)
@@ -1295,13 +1314,11 @@ def profile_training(tr, n=5):
               f"{e.key[:100]}")
 
 
-def phase_training(kernels, profile=False):
+def phase_training(kernels, tmp, profile=False):
     """Phase 11: the LJ55 training ladder on the card through
-    pita_torch.configs.build_trainer. Returns the kernels-line entries;
+    pita_torch.configs.build_trainer, its data sets and checkpoint under
+    ``tmp``. Returns the kernels-line entries and the checkpoint's path;
     with ``profile`` also a torch.profiler breakdown of training steps."""
-    import tempfile
-
-    import numpy as np
     import torch
 
     from pita_torch.configs import build_trainer
@@ -1311,182 +1328,666 @@ def phase_training(kernels, profile=False):
     from pita_torch.train.trainer import StepDraws
 
     counts = lambda: {f.__name__: f.launches for f in kernels}
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = lj55_train_cfg(tmp)
-        tr = build_trainer(cfg, device="cuda")
-        print(f"[phase 11] lj55: N={tr.n_particles}, hidden {cfg.net['hidden_nf']}, "
-              f"{cfg.net['n_layers']} layers, batch {cfg.trainer.training_batch_size}, ladder "
-              f"{tuple(cfg.trainer.temperatures)}, f32, route {tr.score_net.route}")
+    cfg = lj55_train_cfg(tmp)
+    tr = build_trainer(cfg, device="cuda")
+    print(f"[phase 11] lj55: N={tr.n_particles}, hidden {cfg.net['hidden_nf']}, "
+          f"{cfg.net['n_layers']} layers, batch {cfg.trainer.training_batch_size}, ladder "
+          f"{tuple(cfg.trainer.temperatures)}, f32, route {tr.score_net.route}")
 
-        # 1. the rung-0 train set (512 chains, 2000 Adam steps, 12,000 MALA
-        # warmup steps, 20 rounds of 200), then the buffer's energies and forces
-        reset_counts(kernels)
-        t0 = time.perf_counter()
-        tr.populate_initial_buffer()
-        torch.cuda.synchronize()
-        t_set = time.perf_counter() - t0
-        k1_set = counts()["lj_log_prob_and_force"]
-        data = tr.targets[0]._train_set
-        e_set = -tr.targets[0].temperature * tr.buffers.energy[0, :int(tr.buffers.size[0])]
-        print(f"[phase 11] train set at T={tr.temperatures[0]}: {data.shape[0]} samples and "
-              f"the rung-0 buffer in {t_set:.2f} s, K1 launched {k1_set} times (the last for "
-              f"the buffer's {int(tr.buffers.size[0])} rows); buffer energy mean "
-              f"{float(e_set.mean()):.4f}, std {float(e_set.std()):.4f}, min "
-              f"{float(e_set.min()):.4f}, max {float(e_set.max()):.4f}")
-        if k1_set == 0 or not bool(torch.isfinite(e_set).all()) or float(e_set.max()) > 1e3:
-            fail("the train set did not run through K1 or has non-finite or unhealthy energies")
-        if counts()["_lj_scalar"]:
-            fail("the train set launched the first K1")
-        train_set_in_turns(tr.targets[0])
+    # 1. the rung-0 train set (512 chains, 2000 Adam steps, 12,000 MALA
+    # warmup steps, 20 rounds of 200), then the buffer's energies and forces
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    tr.populate_initial_buffer()
+    torch.cuda.synchronize()
+    t_set = time.perf_counter() - t0
+    k1_set = counts()["lj_log_prob_and_force"]
+    data = tr.targets[0]._train_set
+    e_set = -tr.targets[0].temperature * tr.buffers.energy[0, :int(tr.buffers.size[0])]
+    print(f"[phase 11] train set at T={tr.temperatures[0]}: {data.shape[0]} samples and "
+          f"the rung-0 buffer in {t_set:.2f} s, K1 launched {k1_set} times (the last for "
+          f"the buffer's {int(tr.buffers.size[0])} rows); buffer energy mean "
+          f"{float(e_set.mean()):.4f}, std {float(e_set.std()):.4f}, min "
+          f"{float(e_set.min()):.4f}, max {float(e_set.max()):.4f}")
+    if k1_set == 0 or not bool(torch.isfinite(e_set).all()) or float(e_set.max()) > 1e3:
+        fail("the train set did not run through K1 or has non-finite or unhealthy energies")
+    if counts()["_lj_scalar"]:
+        fail("the train set launched the first K1")
+    train_set_in_turns(tr.targets[0])
 
-        # 2. training: 2 epochs x 25 batches of 256, autograd route
-        reset_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        epochs = [tr.train_one_epoch() for _ in range(2)]
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        n_steps = 2 * cfg.trainer.n_train_batches_per_epoch
-        print(f"[phase 11] training: {n_steps} steps in {t_train:.3f} s, "
-              f"{1e3 * t_train / n_steps:.2f} ms a step; losses by epoch "
-              + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in e.items()) for e in epochs)
-              + f"; kernel launches {counts()}")
-        if not all(math.isfinite(v) for e in epochs for v in e.values()):
-            fail("a training loss is not finite")
-        if any(counts().values()):
-            fail("the autograd training route launched a kernel")
-        if profile:
-            profile_training(tr)
-        # the same step on the card and on the CPU, same state and draws
-        state = tr.state_dict()
-        state.pop("generator")
-        d = tr.draw_step(0)
-        nb = STEP_CPU_BATCH
-        d = StepDraws(d.idx[:nb], d.rot_normal[:nb], None,
-                      LossDraws(d.loss.ln_sigma_normal[:nb], d.loss.noise[:nb]))
-        cpu_tr = build_trainer(cfg, device="cpu")
-        cpu_tr.load_state_dict(state)
-        cpu_d = StepDraws(*(None if v is None else v.cpu() for v in d[:3]),
-                          LossDraws(*(v.cpu() for v in d.loss[:2])))
-        packed_before = tr.ema_score.module.layers[0].packed(torch.device("cuda")).clone()
-        aux_c, gn_c = tr.train_step(0, draws=d)
-        t0 = time.perf_counter()
-        aux_h, gn_h = cpu_tr.train_step(0, draws=cpu_d)
-        t_cpu = time.perf_counter() - t0
-        worst = 0.0
-        for k in aux_h:
-            a, b = float(aux_c[k]), float(aux_h[k])
-            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
-        g_rel = abs(float(gn_c) - float(gn_h)) / float(gn_h)
-        print(f"[phase 11] one step at batch {nb}, card against CPU ({t_cpu:.2f} s there): "
-              f"losses max rel err {worst:.2e}, global gradient norm {float(gn_c):.6g} / "
-              f"{float(gn_h):.6g} rel err {g_rel:.2e} (tol {TOL_STEP})")
-        if not (worst <= TOL_STEP and g_rel <= TOL_STEP):
-            fail("a training step on the card disagrees with the same step on the CPU")
-        del cpu_tr
-        # the sampler's kernels see the updated EMA weights
-        if torch.equal(packed_before, tr.ema_score.module.layers[0].packed(torch.device("cuda"))):
-            fail("the EMA update did not repack the layer's kernel weights")
+    # 2. training: 2 epochs x 25 batches of 256, autograd route
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epochs = [tr.train_one_epoch() for _ in range(2)]
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    n_steps = 2 * cfg.trainer.n_train_batches_per_epoch
+    print(f"[phase 11] training: {n_steps} steps in {t_train:.3f} s, "
+          f"{1e3 * t_train / n_steps:.2f} ms a step; losses by epoch "
+          + "; ".join(", ".join(f"{k} {v:.4g}" for k, v in e.items()) for e in epochs)
+          + f"; kernel launches {counts()}")
+    if not all(math.isfinite(v) for e in epochs for v in e.values()):
+        fail("a training loss is not finite")
+    if any(counts().values()):
+        fail("the autograd training route launched a kernel")
+    if profile:
+        profile_training(tr)
+    # the same step on the card and on the CPU, same state and draws
+    state = tr.state_dict()
+    state.pop("generator")
+    d = tr.draw_step(0)
+    nb = STEP_CPU_BATCH
+    d = StepDraws(d.idx[:nb], d.rot_normal[:nb], None,
+                  LossDraws(d.loss.ln_sigma_draw[:nb], d.loss.noise[:nb]))
+    cpu_tr = build_trainer(cfg, device="cpu")
+    cpu_tr.load_state_dict(state)
+    cpu_d = StepDraws(*(None if v is None else v.cpu() for v in d[:3]),
+                      LossDraws(*(v.cpu() for v in d.loss[:2])))
+    packed_before = tr.ema_score.module.layers[0].packed(torch.device("cuda")).clone()
+    aux_c, gn_c = tr.train_step(0, draws=d)
+    t0 = time.perf_counter()
+    aux_h, gn_h = cpu_tr.train_step(0, draws=cpu_d)
+    t_cpu = time.perf_counter() - t0
+    worst = 0.0
+    for k in aux_h:
+        a, b = float(aux_c[k]), float(aux_h[k])
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    g_rel = abs(float(gn_c) - float(gn_h)) / float(gn_h)
+    print(f"[phase 11] one step at batch {nb}, card against CPU ({t_cpu:.2f} s there): "
+          f"losses max rel err {worst:.2e}, global gradient norm {float(gn_c):.6g} / "
+          f"{float(gn_h):.6g} rel err {g_rel:.2e} (tol {TOL_STEP})")
+    if not (worst <= TOL_STEP and g_rel <= TOL_STEP):
+        fail("a training step on the card disagrees with the same step on the CPU")
+    del cpu_tr
+    # the sampler's kernels see the updated EMA weights
+    if torch.equal(packed_before, tr.ema_score.module.layers[0].packed(torch.device("cuda"))):
+        fail("the EMA update did not repack the layer's kernel weights")
 
-        # 3. one rung transition: the val set of rung 1 first (its own K1
-        # launches), then evaluate at the first transition epoch
+    # 3. one rung transition: the val set of rung 1 first (its own K1
+    # launches), then evaluate at the first transition epoch
+    t0 = time.perf_counter()
+    tr.targets[1].sample_val_set(1, tr.generator)
+    torch.cuda.synchronize()
+    print(f"[phase 11] val set at T={tr.temperatures[1]}: {time.perf_counter() - t0:.2f} s")
+    x_fill = tr.targets[0].sample_train_set(256, tr.generator)
+    tr.epoch = int(tr.update_temp_epoch[0]) - 1
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = tr.evaluate("val")
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    fill_counts = counts()
+    buf1 = int(tr.buffers.size[1])
+    print(f"[phase 11] transition fill T={tr.temperatures[0]} -> {tr.temperatures[1]} "
+          f"(K4 route, 256 chains x 100 steps + the 256-chain no-resampling pass): "
+          f"{t_fill:.2f} s; launches {fill_counts}; rung-1 buffer {buf1} rows; "
+          + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    for k in ("lj_log_prob_and_force", "egnn_layer_forward", "egnn_layer_backward",
+              "egnn_layer_tangent"):
+        if fill_counts[k] == 0:
+            fail(f"the f32 fill did not launch {k}")
+    for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc", "egnn_layer_tangent_tc",
+              "g_operator_contract", "_contract_scalar", "_lj_scalar"):
+        if fill_counts[k]:
+            fail(f"the f32 fill launched {k}")
+    if buf1 == 0 or not math.isfinite(m["val/ess"]) or not math.isfinite(
+            m["val/energy_mean"]):
+        fail("the fill left the rung-1 buffer empty or its weights or energies not finite")
+    if not bool(torch.isfinite(tr.buffers.energy[1, :buf1]).all()):
+        fail("the filled buffer holds non-finite energies")
+    layer_rows = fill_layer_entries(tr, x_fill, fill_counts)
+    rows = [k1_entry(tr.targets[0], torch.as_tensor(data[:512], device="cuda"),
+                     "train-set MCMC, 512 chains", k1_set),
+            k1_entry(tr.targets[1], x_fill, "fill, 256 chains",
+                     fill_counts["lj_log_prob_and_force"])] + layer_rows
+    # what one step of the fill costs by route, 256 chains, the EMA nets
+    nets = tr._eval_wrappers()
+    anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
+    x1 = tr._prior(1.0).sample(256, generator=tr.generator, device="cuda")
+    route_s = {}
+    for route, kw in (("K4", dict(divergence_tangent_kernel=True)),
+                      ("K5", dict(divergence_tangent_kernel=False, divergence_g_kernel=True)),
+                      ("materialized", dict(divergence_tangent_kernel=False))):
+        c10 = cfg.integrator.replace(num_integration_steps=10, end_resampling_step=9,
+                                     resample_at_end=False, **kw)
+        integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
+                      c10.replace(num_integration_steps=1, end_resampling_step=1),
+                      seed=1, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.targets[1].sample_val_set(1, tr.generator)
+        integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10,
+                      seed=2, device="cuda")
         torch.cuda.synchronize()
-        print(f"[phase 11] val set at T={tr.temperatures[1]}: {time.perf_counter() - t0:.2f} s")
-        x_fill = tr.targets[0].sample_train_set(256, tr.generator)
-        tr.epoch = int(tr.update_temp_epoch[0]) - 1
-        reset_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = tr.evaluate("val")
-        torch.cuda.synchronize()
-        t_fill = time.perf_counter() - t0
-        fill_counts = counts()
-        buf1 = int(tr.buffers.size[1])
-        print(f"[phase 11] transition fill T={tr.temperatures[0]} -> {tr.temperatures[1]} "
-              f"(K4 route, 256 chains x 100 steps + the 256-chain no-resampling pass): "
-              f"{t_fill:.2f} s; launches {fill_counts}; rung-1 buffer {buf1} rows; "
-              + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
-        for k in ("lj_log_prob_and_force", "egnn_layer_forward", "egnn_layer_backward",
-                  "egnn_layer_tangent"):
-            if fill_counts[k] == 0:
-                fail(f"the f32 fill did not launch {k}")
-        for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc", "egnn_layer_tangent_tc",
-                  "g_operator_contract", "_contract_scalar", "_lj_scalar"):
-            if fill_counts[k]:
-                fail(f"the f32 fill launched {k}")
-        if buf1 == 0 or not math.isfinite(m["val/ess"]) or not math.isfinite(
-                m["val/energy_mean"]):
-            fail("the fill left the rung-1 buffer empty or its weights or energies not finite")
-        if not bool(torch.isfinite(tr.buffers.energy[1, :buf1]).all()):
-            fail("the filled buffer holds non-finite energies")
-        layer_rows = fill_layer_entries(tr, x_fill, fill_counts)
-        rows = [k1_entry(tr.targets[0], torch.as_tensor(data[:512], device="cuda"),
-                         "train-set MCMC, 512 chains", k1_set),
-                k1_entry(tr.targets[1], x_fill, "fill, 256 chains",
-                         fill_counts["lj_log_prob_and_force"])] + layer_rows
-        # what one step of the fill costs by route, 256 chains, the EMA nets
-        nets = tr._eval_wrappers()
-        anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
-        x1 = tr._prior(1.0).sample(256, generator=tr.generator, device="cuda")
-        route_s = {}
-        for route, kw in (("K4", dict(divergence_tangent_kernel=True)),
-                          ("K5", dict(divergence_tangent_kernel=False, divergence_g_kernel=True)),
-                          ("materialized", dict(divergence_tangent_kernel=False))):
-            c10 = cfg.integrator.replace(num_integration_steps=10, end_resampling_step=9,
-                                         resample_at_end=False, **kw)
-            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
-                          c10.replace(num_integration_steps=1, end_resampling_step=1),
-                          seed=1, device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10,
-                          seed=2, device="cuda")
-            torch.cuda.synchronize()
-            route_s[route] = (time.perf_counter() - t0) / 10
-        print("[phase 11] one f32 fill step, 256 chains (10 steps timed): "
-              + ", ".join(f"{r} route {1e3 * s:.1f} ms" for r, s in route_s.items()))
+        route_s[route] = (time.perf_counter() - t0) / 10
+    print("[phase 11] one f32 fill step, 256 chains (10 steps timed): "
+          + ", ".join(f"{r} route {1e3 * s:.1f} ms" for r, s in route_s.items()))
 
-        # 4. checkpoint: save, restore into a fresh trainer, compare; save over
-        # it; an interrupted save leaves the previous one readable
-        path = os.path.join(tmp, "ckpt", "lj55.pt")
-        t0 = time.perf_counter()
+    # 4. checkpoint: save, restore into a fresh trainer, compare; save over
+    # it; an interrupted save leaves the previous one readable
+    path = os.path.join(tmp, "ckpt", "lj55.pt")
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(tr, path)
+    t_save = time.perf_counter() - t0
+    fresh = build_trainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(fresh, path)
+    t_load = time.perf_counter() - t0
+    if not same_state(fresh.state_dict(), tr.state_dict()):
+        fail("a restored checkpoint differs from the saved state")
+    tr.train_step(1)
+    checkpoint.save_checkpoint(tr, path)
+    second = tr.state_dict()
+    tr.train_step(1)
+    write = checkpoint._write
+
+    def torn(state, p):
+        with open(p, "wb") as f:
+            f.write(b"torn")
+        raise OSError("simulated failure before the rename")
+
+    checkpoint._write = torn
+    try:
         checkpoint.save_checkpoint(tr, path)
-        t_save = time.perf_counter() - t0
-        fresh = build_trainer(cfg, device="cuda")
+        fail("the simulated interrupted save did not raise")
+    except OSError:
+        pass
+    finally:
+        checkpoint._write = write
+    checkpoint.restore_checkpoint(fresh, path)
+    if not same_state(fresh.state_dict(), second):
+        fail("an interrupted save did not leave the previous checkpoint whole")
+    print(f"[phase 11] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB: saved in "
+          f"{t_save:.2f} s, restored in {t_load:.2f} s into a fresh trainer, every tensor "
+          f"equal; saved over, then an interrupted save left the previous one whole "
+          f"({sorted(os.listdir(os.path.dirname(path)))})")
+    del fresh
+    return rows, path
+
+
+# ---------------------------------------------------------------- phase 12
+
+# the iDEM target by K1 against the plain version on the first chains'
+# probes: its softmax weights magnify K1's log p error (<= TOL_LJ)
+TOL_IDEM = 1e-3
+IDEM_REF_CHAINS = 8  # the plain version's slice: 8 chains x 1,000 probes
+
+
+def lj55_dem_cfg(tmp, data_dir):
+    """The lj55 preset for the DEM phase, cut in count only: 10 DEM steps an
+    epoch (the preset: 250); the refill's 2,000 chains in one integrate call
+    (max_chains_per_integrate 2048 for the preset's 1024)."""
+    from pita_torch.configs import compose
+
+    return compose("lj55", overrides={
+        "out_dir": os.path.join(tmp, "dem"), "energy.data_dir": data_dir,
+        "trainer.n_train_batches_per_epoch": 10,
+        "trainer.max_chains_per_integrate": 2048,
+        "logger": ("csv",),
+    })
+
+
+def idem_inputs(tr):
+    """One DEM step's noised batch xt (512 chains), its noise levels and its
+    1,000 probes a chain, as pretrain_loss builds them; also the noise added
+    to the mean-free batch, and the draws."""
+    import torch
+
+    from pita_torch.train.augment import rotate_augment
+    from pita_torch.train.buffer import buffer_sample, buffer_view
+    from pita_torch.utils.mean_free import remove_mean
+
+    dem = tr.dem_cfg
+    d = tr.dem_draw_step()
+    x0, _, f0, _ = buffer_sample(buffer_view(tr.buffers, 0), dem.training_batch_size, idx=d.idx)
+    x0, _ = rotate_augment(x0, f0, 55, 3, normal=d.rot_normal)
+    ht = torch.exp(2 * dem.noise_schedule.sample_ln_sigma(x0.shape[0], d.loss.ln_sigma_draw))
+    noise = remove_mean(d.loss.noise, 55, 3) * torch.sqrt(ht)[:, None]
+    return remove_mean(x0, 55, 3) + noise, ht, d.loss.mc_eps, noise, d
+
+
+def refill_k2_entry(tr, x_flat, launches):
+    """The f32 scalar K2 at the refill's launch (2,000 chains) on the EMA
+    score net's layer 0 at t = 0.5: against layer_step, timed, its bound."""
+    import torch
+
+    from pita_torch.nets.precondition import coeffs
+    from pita_torch.ops import egnn_layer as el
+
+    bb = tr.ema_score.module
+    B, N, F = x_flat.shape[0], tr.n_particles, bb.hidden_nf
+    ht = tr.noise_schedule.h(torch.full((B,), 0.5, device=x_flat.device))
+    _, c_in, _, c_noise = coeffs(ht)
+    x_in = c_in[:, None] * x_flat
+    xs = x_in.reshape(B, N, 3).contiguous()
+    h = bb.embed(c_noise, x_in, 1.0).contiguous()
+    ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
+    layer = bb.layers[0]
+    w, cfg, packed = layer.weights(), layer.cfg, layer.packed(x_flat.device)
+    fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
+    got = fwd()
+    with torch.no_grad():
+        ref = el.layer_step(h, xs, ea, w, **cfg)
+        plain = cuda_ms(lambda: el.layer_step(h, xs, ea, w, **cfg), reps=5)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    if not max(e[0] for e in errs) <= TOL_F32:
+        fail("the f32 K2 disagrees with its plain version at the refill's 2,000 chains")
+    ms = cuda_ms(fwd)
+    E = B * N * (N - 1)
+    bnd = bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + 4 * packed.numel(),
+                   E * 4 * F * F + B * N * 10 * F * F, PEAK_F32, (3 * F + 2) * E)
+    print(f"[phase 12] f32 scalar K2 at the refill's {B} chains (EMA score net, layer 0): rel "
+          f"err h_out {errs[0][0]:.2e}, x_out {errs[1][0]:.2e} (tol {TOL_F32}); {ms:.4f} ms, "
+          f"plain {plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} launches")
+    return dict(name="egcl_forward (phase 12 DEM refill, 2000 chains)", route="cuda",
+                source="pita_torch/csrc/egnn_layer.cu",
+                replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=launches,
+                max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None)
+
+
+def idem_k1_entry(target, probes, launches):
+    """K1 at the iDEM launch (512 chains x 1,000 probes): against its plain
+    version on the first 8,000 probes, timed by CUDA events and by
+    torch.profiler; the plain version timed over all of them in chunks of
+    8,000 (in one call it would hold (B, N, N) tensors of 6 GB); the bound.
+    Returns the kernels-line entry and the device time."""
+    import torch
+
+    from pita_torch.ops import lj as ljop
+
+    N, B = target.n_particles, probes.shape[0]
+    kw = lj_kwargs(target)
+    n_ref = IDEM_REF_CHAINS * 1000
+    lp_k, f_k = ljop.lj_log_prob_and_force(probes, N, **kw)
+    lp_p, f_p = ljop.lj_log_prob_and_force_plain(probes[:n_ref], N, **kw)
+    torch.cuda.synchronize()
+    (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k[:n_ref], lp_p), rel_err(f_k[:n_ref], f_p)
+    if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
+        fail("K1 disagrees with its plain version on the iDEM probes")
+    run = lambda: ljop.lj_log_prob_and_force(probes, N, **kw)
+    ms = cuda_ms(run, reps=20)
+    dev_ms = profiled_ms(run, "lj_pairs_kernel", n=20)
+    if dev_ms is None:
+        fail("K1's device time at the iDEM launch was not measured (no lj_pairs_kernel row)")
+
+    def plain_all():
+        for i in range(0, B, n_ref):
+            ljop.lj_log_prob_and_force_plain(probes[i:i + n_ref], N, **kw)
+
+    plain = cuda_ms(plain_all, reps=1, warmup=1)
+    bnd, by = lj_bound(probes, target, "the iDEM launch", 12)
+    sms = torch.cuda.get_device_properties(probes.device).multi_processor_count
+    print(f"[phase 12] K1 at the iDEM launch (B={B}, {ljop.lanes_per_particle(N, B, sms)} lanes "
+          f"a particle on {sms} SMs): rel err on the first {n_ref} logp {r_lp:.2e} force "
+          f"{r_f:.2e} (tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone "
+          f"{dev_ms:.4f} ms (torch.profiler), plain {plain:.2f} ms (in chunks of {n_ref}), "
+          f"bound {bnd:.5f} ms ({by}); {launches} launches")
+    return dict(name="lj_log_prob_and_force (phase 12 iDEM target, 512000 configurations)",
+                route="cuda", source="pita_torch/csrc/lj.cu",
+                replaces="pita_tpu/ops/pallas/lj.py:108", launches=launches,
+                max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None), dev_ms
+
+
+def profile_dem_steps(tr, n=3):
+    """torch.profiler over ``n`` DEM steps: wall and device busy time a step,
+    K1's device time a step and its share of each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        checkpoint.restore_checkpoint(fresh, path)
-        t_load = time.perf_counter() - t0
-        if not same_state(fresh.state_dict(), tr.state_dict()):
-            fail("a restored checkpoint differs from the saved state")
-        tr.train_step(1)
-        checkpoint.save_checkpoint(tr, path)
-        second = tr.state_dict()
-        tr.train_step(1)
-        write = checkpoint._write
+        for _ in range(n):
+            tr.dem_train_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    dev = lambda e: e.self_device_time_total / 1e3
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=dev, reverse=True)
+    busy = sum(dev(e) for e in rows) / n
+    k1 = sum(dev(e) for e in rows if "lj_pairs_kernel" in e.key) / n
+    print(f"[phase 12] profile of {n} DEM steps: {wall_ms:.1f} ms a step (profiled), device busy "
+          f"{busy:.1f} ms = {100 * busy / wall_ms:.1f} %; K1 {k1:.4f} ms a step = "
+          f"{100 * k1 / busy:.3f} % of busy, {100 * k1 / wall_ms:.3f} % of the step")
+    for e in rows[:8]:
+        print(f"[profile] {dev(e) / n:9.3f} ms a step  {100 * dev(e) / n / busy:5.1f} %  "
+              f"x{e.count // n:<5d} {e.key[:100]}")
+    return wall_ms
 
-        def torn(state, p):
-            with open(p, "wb") as f:
-                f.write(b"torn")
-            raise OSError("simulated failure before the rename")
 
-        checkpoint._write = torn
-        try:
-            checkpoint.save_checkpoint(tr, path)
-            fail("the simulated interrupted save did not raise")
-        except OSError:
-            pass
-        finally:
-            checkpoint._write = write
-        checkpoint.restore_checkpoint(fresh, path)
-        if not same_state(fresh.state_dict(), second):
-            fail("an interrupted save did not leave the previous checkpoint whole")
-        print(f"[phase 11] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB: saved in "
-              f"{t_save:.2f} s, restored in {t_load:.2f} s into a fresh trainer, every tensor "
-              f"equal; saved over, then an interrupted save left the previous one whole "
-              f"({sorted(os.listdir(os.path.dirname(path)))})")
-        del fresh
+def phase_dem(kernels, tmp, data_dir):
+    """Phase 12, DEM: 2 epochs of iDEM pretraining on the lj55 preset through
+    fit, with one refill of buffer 0; then the iDEM target and the
+    force-based loss held against their plain and CPU versions. Returns the
+    kernels-line entries and the trainer."""
+    import csv
+
+    import torch
+
+    from pita_torch.configs import build_trainer
+    from pita_torch.ops import lj as ljop
+    from pita_torch.train.dem import DEMConfig, DEMDraws, pretrain_loss
+    from pita_torch.train.dem_estimator import estimate_grad_Rt
+    from pita_torch.utils.mean_free import remove_mean
+
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    cfg = lj55_dem_cfg(tmp, data_dir)
+    dem = DEMConfig(num_training_epochs=2, use_mc_target=True, check_val_every_n_epochs=1)
+    tr = build_trainer(cfg, dem_cfg=dem, device="cuda")
+    target0 = tr.targets[0]
+    print(f"[phase 12] lj55 + DEM: N={tr.n_particles}, hidden {cfg.net['hidden_nf']}, "
+          f"{cfg.net['n_layers']} layers, f32; {dem}; n_train_batches_per_epoch "
+          f"{cfg.trainer.n_train_batches_per_epoch} (the preset: 250), max_chains_per_integrate "
+          f"{cfg.trainer.max_chains_per_integrate} (the preset: 1024)")
+    t0 = time.perf_counter()
+    target0.sample_val_set(1, tr.generator)  # read by the refill's metrics
+    torch.cuda.synchronize()
+    print(f"[phase 12] val set at T={target0.temperature}: {time.perf_counter() - t0:.2f} s")
+
+    # every K1 launch of fit goes through target 0: record its batch sizes
+    sizes, lpf = [], target0.log_prob_and_force
+
+    def recorded(x):
+        sizes.append(x.shape[0])
+        return lpf(x)
+
+    target0.log_prob_and_force = recorded
+    refill_s, refill = [], tr.eval_epoch_end_dem
+
+    def timed_refill(*a, **k):
+        t = time.perf_counter()
+        out = refill(*a, **k)
+        torch.cuda.synchronize()
+        refill_s.append(time.perf_counter() - t)
+        return out
+
+    tr.eval_epoch_end_dem = timed_refill
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = tr.fit(max_epochs=2, log_every=1)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    fit_counts = counts()
+    del target0.log_prob_and_force, tr.eval_epoch_end_dem
+    with open(os.path.join(tr.out_dir, "metrics.csv"), newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train/pretrain_target_score_loss")]
+    losses = [float(r["train/pretrain_target_score_loss"]) for r in rows]
+    epoch_s = [float(r["train/epoch_s"]) for r in rows]
+    n_b = cfg.trainer.n_train_batches_per_epoch
+    B, K = dem.training_batch_size, dem.num_mc_samples
+    n_init, size0 = cfg.trainer.num_init_samples, int(tr.buffers.size[0])
+    n_refill = dem.num_samples_to_generate_per_epoch
+    dem_m = [m for m in history if any(k.startswith("val/dem/") for k in m)]
+    print(f"[phase 12] fit, 2 DEM epochs x {n_b} steps of {B} (iDEM, {K} probes a chain) and one "
+          f"refill ({n_refill} chains x {dem.num_integration_steps} plain-SDE steps): "
+          f"{t_fit:.2f} s; epochs "
+          + ", ".join(f"{s:.3f} s = {1e3 * s / n_b:.1f} ms a step" for s in epoch_s)
+          + f"; the refill {', '.join(f'{v:.2f}' for v in refill_s)} s"
+          + f"; losses {losses}; launches {fit_counts}; K1 batch sizes {sorted(set(sizes))} "
+          f"({len(sizes)} calls); buffer 0 {size0} rows; "
+          + ", ".join(f"{k} {v:.4g}" for m in dem_m for k, v in m.items()))
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        fail("a DEM loss is not finite")
+    if (sizes != [n_init] + [B * K] * (2 * n_b) + [n_refill]
+            or fit_counts["lj_log_prob_and_force"] != len(sizes)):
+        fail(f"K1 did not launch once per DEM step at {B * K} configurations")
+    if size0 != n_init + n_refill:
+        fail(f"the refill did not add {n_refill} rows to buffer 0")
+    if fit_counts["egnn_layer_forward"] != 3 * dem.num_integration_steps:
+        fail(f"the refill launched the f32 K2 {fit_counts['egnn_layer_forward']} times, not "
+             f"{3 * dem.num_integration_steps}")
+    for k in ("egnn_layer_backward", "egnn_layer_tangent", "egnn_layer_forward_tc",
+              "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "g_operator_contract",
+              "_contract_scalar", "_lj_scalar"):
+        if fit_counts[k]:
+            fail(f"the DEM phase launched {k}")
+    if len(dem_m) != 1 or not all(math.isfinite(v) for v in dem_m[0].values()):
+        fail("the refill's val/dem metrics are missing or not finite")
+
+    # a DEM step's time and K1's share of it (torch.profiler); the MC target
+    # alone by CUDA events at the step's shape
+    step_ms = profile_dem_steps(tr)
+    xt, ht, eps, noise, d = idem_inputs(tr)
+    mc_ms = cuda_ms(lambda: estimate_grad_Rt(ht, xt, target0.log_prob_and_force, eps), reps=5)
+    print(f"[phase 12] the iDEM target (estimate_grad_Rt, {B} x {K} probes) {mc_ms:.3f} ms by "
+          f"CUDA events = {100 * mc_ms / step_ms:.2f} % of the profiled step")
+
+    # the iDEM target by K1 against the plain version on the first chains:
+    # on this step's batch (buffer 0: prior samples and the refill's) and on
+    # val-set configurations (T = 2) noised the same way
+    n = IDEM_REF_CHAINS
+    plain = lambda y: ljop.lj_log_prob_and_force_plain(y, 55, **lj_kwargs(target0))
+    x_val = target0.sample_val_set(B, tr.generator)
+    xt_val = remove_mean(x_val, 55, 3) + noise
+    err = {}
+    for label, xb in (("the step's batch", xt), ("val-set configurations", xt_val)):
+        got = estimate_grad_Rt(ht, xb, target0.log_prob_and_force, eps)
+        ref = estimate_grad_Rt(ht[:n], xb[:n], plain, eps[:n])
+        torch.cuda.synchronize()
+        err[label] = rel_err(got[:n], ref)
+        if not (err[label][0] <= TOL_IDEM and bool(torch.isfinite(got).all())):
+            fail(f"the iDEM target by K1 disagrees with its plain version on {label}")
+    print(f"[phase 12] iDEM target, card (one K1 launch of {B * K}) against plain on the first "
+          f"{n} chains' {n * K} probes: max abs err / max abs value "
+          + ", ".join(f"{r:.2e} on {k} (max abs err {a:.3e})" for k, (r, a) in err.items())
+          + f"; tol {TOL_IDEM}")
+    probes = (xt[:, None, :] + eps * torch.sqrt(ht)[:, None, None]).reshape(-1, xt.shape[1])
+    k1_row, k1_dev = idem_k1_entry(target0, probes, 2 * n_b)
+    print(f"[phase 12] K1's device time at the iDEM launch {k1_dev:.4f} ms = "
+          f"{100 * k1_dev / step_ms:.3f} % of a DEM step")
+    del probes
+
+    # one force-based pretraining loss on the card against the CPU, same
+    # draws, on val-set configurations and their forces
+    nb = STEP_CPU_BATCH
+    force = dem.replace(use_mc_target=False)
+    draws = DEMDraws(d.loss.ln_sigma_draw[:nb], d.loss.noise[:nb])
+    kw = dict(n_particles=55, n_spatial_dim=3, mean_free=True)
+    beta0 = float(tr.inverse_temperatures[0])
+    x0, f0 = x_val[:nb], target0.log_prob_and_force(x_val[:nb])[1]
+    card = pretrain_loss(tr.score, force, x0, f0, beta0, draws=draws, **kw).detach()
+    state = tr.state_dict()
+    state.pop("generator")
+    cpu_tr = build_trainer(cfg, device="cpu")
+    cpu_tr.load_state_dict(state)
+    host = pretrain_loss(cpu_tr.score, force, x0.cpu(), f0.cpu(), beta0,
+                         draws=DEMDraws(*(v.cpu() for v in draws[:2])), **kw).detach()
+    r_loss = abs(float(card) - float(host)) / abs(float(host))
+    print(f"[phase 12] force-based pretrain_loss at batch {nb}, card against CPU: "
+          f"{float(card):.6g} / {float(host):.6g}, rel err {r_loss:.2e} (tol {TOL_STEP})")
+    if not r_loss <= TOL_STEP:
+        fail("the force-based pretraining loss on the card disagrees with the CPU")
+    del cpu_tr
+    k2_row = refill_k2_entry(tr, tr.buffers.x[0, n_init:size0], fit_counts["egnn_layer_forward"])
+    return [k1_row, k2_row], tr
+
+
+def phase_mcmc(kernels):
+    """Phase 12, MCMC: 100 adaptive HMC steps of 10 leapfrogs on LJ55 at
+    T = 1 from 512 ground-truth configurations, then the gated ten-run
+    protocol for LJ55_temp_1.0_val (protocol_gate)."""
+    import numpy as np
+    import torch
+
+    from pita_torch.baselines.mcmc import hmc_chain
+    from pita_torch.io.bench_asset import BENCH_ASSET
+    from pita_torch.targets import LennardJones
+
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    target = LennardJones(55, smooth=True, temperature=1.0)
+    x0 = torch.as_tensor(np.load(BENCH_ASSET)["data_T_low"][:512], device="cuda")
+    S, L = 100, 10
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, accs, eps = hmc_chain(target.log_prob_and_force, x0, S, n_leapfrog=L,
+                             generator=torch.Generator("cuda").manual_seed(12))
+    torch.cuda.synchronize()
+    t_hmc = time.perf_counter() - t0
+    c = counts()
+    a = accs.cpu().numpy()
+    print(f"[phase 12] HMC, 512 chains x {S} steps of {L} leapfrogs at T=1: {t_hmc:.3f} s = "
+          f"{1e3 * t_hmc / S:.2f} ms a step; acceptance first/mean/last {a[0]:.3f}/"
+          f"{a.mean():.3f}/{a[-1]:.3f}, final step size {float(eps):.3e}, mean log p "
+          f"{float(target.log_prob(x).mean()):.3f}; K1 {c['lj_log_prob_and_force']} launches "
+          f"({1 + S * (L + 2)} expected), the first K1 {c['_lj_scalar']}")
+    if c["lj_log_prob_and_force"] != 1 + S * (L + 2) or c["_lj_scalar"]:
+        fail("HMC did not launch K1 1 + S(L+2) times, or launched the first K1")
+    if not (np.isfinite(a).all() and math.isfinite(float(eps))
+            and bool(torch.isfinite(x).all())):
+        fail("HMC's acceptance, step size or positions are not finite")
+
+    if not protocol_gate("LJ55_temp_1.0_val", kernels):
+        fail("the protocol's diagnostics diverge from the committed ones")
+
+
+def protocol_gate(name, kernels):
+    """The gated ten-run protocol at the settings scripts/make_ground_truth.py
+    uses for the committed asset ``name`` (LJ55_temp_<T>_<which>; seed
+    {train 0, val 50, test 90} + int(7 T), warmup 10,000), held to its
+    committed diagnostics by that script's cross-backend tolerance
+    (scripts/make_ground_truth.py:133-141): R-hat < 1.05, the R-hat gap
+    within 0.02, and the run energy means within max(0.05 x mean committed
+    spread, 3.5 x std of the committed run means) of the committed ones.
+
+    The script pairs run r with the committed run r, which shares its seed
+    on the same backend. Seeded chains on another backend are fresh draws
+    (the script says so), so that pairing is arbitrary here: the gate pairs
+    the runs by rank (the r-th lowest mean with the committed r-th lowest),
+    which a shift of every run or one stray run moves as much as the pairing
+    by index does. The gap by index is printed beside it. Returns whether
+    every arm holds; fails the run if the protocol left K1 or launched the
+    first K1."""
+    import numpy as np
+    import torch
+
+    from pita_torch.baselines.mcmc import generate_lj_dataset_reference_protocol
+    from pita_torch.targets import LennardJones
+
+    n_part, _, T, which = name.split("_")
+    T, n_part = float(T), int(n_part[2:])
+    seed = {"train": 0, "val": 50, "test": 90}[which] + int(T * 7)
+    with open(os.path.join(REPO, "data", f"{name}.rhat.json")) as f:
+        committed = json.load(f)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, diag = generate_lj_dataset_reference_protocol(
+        LennardJones(n_part, smooth=True, temperature=T), num_samples=committed["num_samples"],
+        n_runs=committed["n_runs"], seed=seed, warmup=committed["warmup"], device="cuda")
+    torch.cuda.synchronize()
+    t_proto = time.perf_counter() - t0
+    old = np.asarray(committed["per_run_energy_mean"])
+    new = np.asarray(diag["per_run_energy_mean"])
+    index_gap = float(np.max(np.abs(old - new)))
+    rank_gap = float(np.max(np.abs(np.sort(old) - np.sort(new))))
+    rhat_gap = abs(diag["rhat_energy"] - committed["rhat_energy"])
+    tol = max(0.05 * float(np.mean(committed["per_run_energy_std"])), 3.5 * float(np.std(old)))
+    c = {f.__name__: f.launches for f in kernels}
+    ok = (diag["converged"] and diag["rhat_energy"] < 1.05 and rank_gap <= tol
+          and rhat_gap <= 0.02)
+    print(f"[phase 12] protocol {name} ({committed['num_samples']} samples, "
+          f"{committed['n_runs']} runs, warmup {committed['warmup']}, seed {seed}): "
+          f"{t_proto:.2f} s, K1 {c['lj_log_prob_and_force']} launches; R-hat "
+          f"{diag['rhat_energy']:.5f} (committed {committed['rhat_energy']:.5f}, gap "
+          f"{rhat_gap:.5f}, tol 0.02); per-run energy means "
+          f"{[round(float(v), 3) for v in new]} (committed {[round(float(v), 3) for v in old]}), "
+          f"std of the means {float(np.std(new)):.4f} (committed {float(np.std(old)):.4f}), "
+          f"per-run spreads {[round(float(v), 2) for v in diag['per_run_energy_std']]}; largest "
+          f"gap to the committed by rank {rank_gap:.4f}, by index {index_gap:.4f} "
+          f"({'within' if index_gap <= tol else 'beyond'} tol), tol {tol:.4f}; "
+          f"{'pass' if ok else 'MISS'}")
+    if c["_lj_scalar"] or not c["lj_log_prob_and_force"]:
+        fail("the protocol did not run on K1, or launched the first K1")
+    return ok
+
+
+def phase_clis(kernels, tmp, ckpt, data_dir):
+    """Phase 12, entry points: eval_cli on an lj55 checkpoint with the test
+    cut like phase 11's fill; train_cli -m over two seeds and train_cli with
+    a YAML overlay, LJ13 debug=short cut to 2 epochs without the test phase."""
+    import csv
+
+    import yaml
+
+    from pita_torch import eval_cli, train_cli
+    from pita_torch.configs.registry import DEBUG_OVERLAYS
+
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    args = ["experiment=lj55", f"ckpt_path={ckpt}", "device=cuda",
+            f"out_dir={os.path.join(tmp, 'eval')}", f"energy.data_dir={data_dir}",
+            "trainer.num_samples_to_save=256", "trainer.test_batch_size=256",
+            "integrator.num_integration_steps=100", "integrator.end_resampling_step=90",
+            "integrator.pallas_divergence=true", "trainer.temps_to_anneal_test=((2.0,1.5),)",
+            "logger=csv,"]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    metrics = eval_cli.main(args)
+    t_eval = time.perf_counter() - t0
+    c = counts()
+    shown = " ".join(a for a in args if not a.startswith(("ckpt_path", "out_dir", "energy")))
+    print(f"[phase 12] eval_cli {shown} on {os.path.basename(ckpt)}: {t_eval:.2f} s with the "
+          f"test set at T=1.5; launches {c}")
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail("eval_cli's test metrics are missing or not finite")
+    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent"):
+        if not c[k]:
+            fail(f"eval_cli's test did not launch {k}")
+    if any(c[k] for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc",
+                          "egnn_layer_tangent_tc", "_lj_scalar")):
+        fail("eval_cli's f32 test launched a tensor-core kernel or the first K1")
+
+    lj13 = ["experiment=lj13", "debug=short", "device=cuda", "test=false",
+            f"energy.data_dir={os.path.join(tmp, 'data13')}"]
+    mdir = os.path.join(tmp, "multirun")
+    t0 = time.perf_counter()
+    res = train_cli.main(["-m", "seed=1,2", "trainer.max_epochs=2", f"out_dir={mdir}"] + lj13)
+    t_m = time.perf_counter() - t0
+    runs = sorted(os.listdir(mdir))
+    print(f"[phase 12] train_cli -m experiment=lj13 debug=short seed=1,2 test=false "
+          f"trainer.max_epochs=2: {t_m:.2f} s with the LJ13 train and val sets; run "
+          f"directories {runs}, results {res}")
+    if runs != ["lj13_seed-1", "lj13_seed-2"] or not all(
+            os.path.exists(os.path.join(mdir, r, "metrics.csv")) for r in runs):
+        fail("train_cli -m did not produce its two run directories")
+
+    path = os.path.join(tmp, "geometric_score_only.yaml")
+    overlay = {"noise_schedule": {"kind": "geometric", "sigma_min": 0.05, "sigma_max": 80.0},
+               "trainer.max_epochs": 2, **DEBUG_OVERLAYS["score_only"]}
+    with open(path, "w") as f:
+        yaml.safe_dump(overlay, f)
+    ydir = os.path.join(tmp, "yaml")
+    t0 = time.perf_counter()
+    train_cli.main([f"config={path}", f"out_dir={ydir}"] + lj13)
+    t_y = time.perf_counter() - t0
+    with open(os.path.join(ydir, "lj13", "metrics.csv"), newline="") as f:
+        rows = [r for r in csv.DictReader(f) if r.get("train/score_loss")]
+    score = [float(r["train/score_loss"]) for r in rows]
+    energy = [float(r["train/energy_score_loss"]) for r in rows]
+    print(f"[phase 12] train_cli experiment=lj13 debug=short config=<{overlay}> test=false: "
+          f"{t_y:.2f} s; score losses {score}, energy-score losses {energy}")
+    if not score or not all(math.isfinite(v) for v in score) or any(energy):
+        fail("the YAML-configured geometric score-only run did not train the score alone")
+
+
+def phase_tools(kernels, tmp, ckpt=None):
+    """Phase 12: the training tools on the card. ``ckpt``: phase 11's
+    checkpoint for eval_cli; without one, the DEM trainer's."""
+    from pita_torch.io import checkpoint
+
+    data_dir = os.path.join(tmp, "data")
+    rows, tr = phase_dem(kernels, tmp, data_dir)
+    if ckpt is None:
+        ckpt = os.path.join(tmp, "ckpt", "lj55_dem.pt")
+        checkpoint.save_checkpoint(tr, ckpt)
+    del tr
+    phase_mcmc(kernels)
+    phase_clis(kernels, tmp, ckpt, data_dir)
     return rows
 
 
@@ -1528,7 +2029,19 @@ def main():
                egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
                egnn_layer_tangent_tc, g_operator_contract, _contract_scalar, _lj_scalar)
     if "--training-only" in sys.argv[1:]:  # quick check of the training path
-        phase_training(kernels, "--profile" in sys.argv[1:])
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_training(kernels, tmp, "--profile" in sys.argv[1:])
+        return 0
+    if "--tools-only" in sys.argv[1:]:  # quick check of the training tools
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tools(kernels, tmp)
+        return 0
+    if "--protocol-assets" in sys.argv[1:]:  # the protocol gate on every committed LJ55 asset
+        names = sorted(f[:-len(".rhat.json")] for f in os.listdir(os.path.join(REPO, "data"))
+                       if f.startswith("LJ55_") and f.endswith(".rhat.json"))
+        held = [protocol_gate(n, kernels) for n in names]
+        print(f"[phase 12] protocol gate on {len(names)} committed LJ55 assets: "
+              f"{sum(held)} pass, misses {[n for n, h in zip(names, held) if not h]}")
         return 0
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
@@ -1633,9 +2146,12 @@ def main():
         fail(f"the exact-divergence quality run misses an arm of the gate (ground truth, exact "
              f"population: {arms})")
 
-    # phase 11: the LJ55 training ladder (train set, training, a rung
-    # transition's fill, checkpoints), the f32 kernels its main route
-    training_rows = phase_training(kernels, profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        # phase 11: the LJ55 training ladder (train set, training, a rung
+        # transition's fill, checkpoints), the f32 kernels its main route
+        training_rows, ckpt = phase_training(kernels, tmp, profile)
+        # phase 12: DEM pretraining, HMC, the gated protocol, the entry points
+        tools_rows = phase_tools(kernels, tmp, ckpt)
 
     src = "pita_torch/csrc/"
     line = {"kernels": [
@@ -1677,6 +2193,7 @@ def main():
              replaces="pita_tpu/ops/pallas/g_op.py:133",
              launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
         *training_rows,
+        *tools_rows,
     ]}
     print(json.dumps(line))
     print(smi)

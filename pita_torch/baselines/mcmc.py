@@ -1,17 +1,19 @@
-"""Ground-truth MCMC: batched adaptive MALA and the LJ dataset generator.
+"""Ground-truth MCMC: batched adaptive MALA and HMC, the LJ dataset
+generator, and the reference's gated ground-truth protocol.
 
-Counterpart of ``pita_tpu/baselines/mcmc.py:18-195`` (``_mala_step``,
-``mala_chain``, ``generate_lj_dataset``). The ``lax.scan`` programs become
-Python loops over device tensors; the step-size adaptation is a
+Counterpart of ``pita_tpu/baselines/mcmc.py`` (``_mala_step``,
+``mala_chain``, ``hmc_chain``, ``generate_lj_dataset``, ``split_rhat``,
+``generate_lj_dataset_reference_protocol``). The ``lax.scan`` programs
+become Python loops over device tensors; the step-size adaptation is a
 ``torch.where`` on the device, so no step waits for it. Every log-density
 and force comes from the target's ``log_prob_and_force``: kernel K1 for an
 LJ target on CUDA, its plain version on the CPU. The relaxation's energy
 gradient is −T·force from the same call.
 
-Randomness: ``_mala_step`` takes its normal and uniform draws as arguments;
-``mala_chain`` and ``generate_lj_dataset`` draw them from a
-``torch.Generator``. ``hmc_chain``, ``split_rhat`` and the reference
-protocol (``generate_lj_dataset_reference_protocol``) are not ported.
+Randomness: ``_mala_step`` and ``_hmc_step`` take their normal and uniform
+draws as arguments; ``mala_chain`` and ``generate_lj_dataset`` draw them
+from a ``torch.Generator``, and ``hmc_chain`` from one or from a list of
+draws passed in.
 """
 
 import itertools
@@ -62,6 +64,57 @@ def mala_chain(log_prob_and_force, x0, num_steps: int, dt=1e-4, adapt: bool = Tr
             dt = torch.where(acc > target_accept, dt * 1.02, dt / 1.02)
         accs.append(acc)
     return x, torch.stack(accs), dt
+
+
+def _hmc_step(log_prob_and_force, x, lp, eps, momentum, u, n_leapfrog: int):
+    """One HMC step over a batch of chains (mcmc.py:99-111): ``n_leapfrog``
+    leapfrog steps of size ``eps`` from the momenta ``momentum`` (B, D),
+    then Metropolis with the uniforms ``u`` (B,). Calls
+    ``log_prob_and_force`` n_leapfrog + 2 times. Returns (x, log_prob,
+    acceptance rate, accept mask)."""
+    _, force = log_prob_and_force(x)
+    p = momentum + 0.5 * eps * force
+    x_new = x
+    for _ in range(n_leapfrog):
+        x_new = x_new + eps * p
+        _, force = log_prob_and_force(x_new)
+        p = p + eps * force
+    p = p - 0.5 * eps * force  # halve the final kick
+    lp_new, _ = log_prob_and_force(x_new)
+    ke0 = 0.5 * (momentum**2).sum(-1)
+    ke1 = 0.5 * (p**2).sum(-1)
+    log_ratio = (lp_new - lp) + (ke0 - ke1)
+    accept = torch.log(u) < log_ratio
+    x = torch.where(accept[:, None], x_new, x)
+    lp = torch.where(accept, lp_new, lp)
+    return x, lp, accept.float().mean(), accept
+
+
+def hmc_chain(log_prob_and_force, x0, num_steps: int, step_size=1e-2, n_leapfrog: int = 10,
+              adapt: bool = True, target_accept: float = 0.65, generator=None, draws=None):
+    """Batched HMC with leapfrog integration (mcmc.py:68-116; fab's hmc.py):
+    ``num_steps`` steps, the step size growing or shrinking by 2 % a step
+    around ``target_accept``. ``draws``: a (momenta (B, D), uniforms (B,))
+    pair per step; else drawn from ``generator``. Calls
+    ``log_prob_and_force`` 1 + num_steps·(n_leapfrog + 2) times.
+
+    Returns (x_final, acceptance rates (num_steps,), step size as a 0-d tensor).
+    """
+    x = x0
+    lp, _ = log_prob_and_force(x)
+    eps = torch.as_tensor(step_size, dtype=torch.float32, device=x.device)
+    accs = []
+    for i in range(num_steps):
+        if draws is not None:
+            momentum, u = draws[i]
+        else:
+            momentum = torch.randn(x.shape, generator=generator, device=x.device)
+            u = torch.rand(lp.shape, generator=generator, device=x.device)
+        x, lp, acc, _ = _hmc_step(log_prob_and_force, x, lp, eps, momentum, u, n_leapfrog)
+        if adapt:
+            eps = torch.where(acc > target_accept, eps * 1.02, eps / 1.02)
+        accs.append(acc)
+    return x, torch.stack(accs), eps
 
 
 def energy_grad(target, x):
@@ -136,3 +189,47 @@ def generate_lj_dataset(target, num_samples: int, seed: int = 0, warmup: int = 1
         x, _, dt = mala_chain(lpf, x, thin * 20, dt=dt, generator=gen)
         out.append(x.cpu().numpy())
     return np.concatenate(out, axis=0)[:num_samples]
+
+
+def split_rhat(chains_stat: np.ndarray) -> float:
+    """Split-R̂ of a scalar statistic; chains_stat (n_chains, n_draws)
+    (mcmc.py:197-211, Gelman et al.'s split-chain potential scale reduction)."""
+    c = np.asarray(chains_stat, np.float64)
+    n = c.shape[1] // 2
+    halves = np.concatenate([c[:, :n], c[:, n:2 * n]], axis=0)  # (2m, n)
+    m, n = halves.shape
+    means = halves.mean(axis=1)
+    W = halves.var(axis=1, ddof=1).mean()
+    B = n * means.var(ddof=1)
+    var_plus = (n - 1) / n * W + B / n
+    return float(np.sqrt(var_plus / max(W, 1e-300)))
+
+
+def generate_lj_dataset_reference_protocol(target, num_samples: int = 20000, n_runs: int = 10,
+                                           seed: int = 0, warmup: int = 12000,
+                                           rhat_tolerance: float = 1.05, device=None):
+    """The reference's ground-truth protocol with a convergence gate
+    (mcmc.py:214-253): ``n_runs`` independently seeded ensembles of
+    ``generate_lj_dataset`` (seed ``seed + 1000·r``), pooled; the split-R̂
+    of the per-run energy traces must stay below ``rhat_tolerance`` for
+    ``converged``. Returns (samples (num_samples, dim), diagnostics)."""
+    dev = resolve_device(device)
+    per_run = int(np.ceil(num_samples / n_runs))
+    runs, energies = [], []
+    for r in range(n_runs):
+        data = generate_lj_dataset(target, per_run, seed=seed + 1000 * r, warmup=warmup,
+                                   device=dev)
+        runs.append(data)
+        energies.append(target.energy(torch.as_tensor(data, device=dev)).cpu().numpy())
+    e = np.stack(energies)  # (n_runs, per_run)
+    rhat = split_rhat(e)
+    diag = {
+        "rhat_energy": rhat,
+        "per_run_energy_mean": [float(m) for m in e.mean(axis=1)],
+        "per_run_energy_std": [float(s) for s in e.std(axis=1)],
+        "converged": bool(rhat < rhat_tolerance),
+    }
+    if not diag["converged"]:
+        print(f"WARNING: ground-truth runs disagree (R-hat {rhat:.3f} > {rhat_tolerance}); "
+              "treat the pooled dataset with caution")
+    return np.concatenate(runs, axis=0)[:num_samples], diag

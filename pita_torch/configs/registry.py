@@ -2,13 +2,13 @@
 
 Counterpart of ``pita_tpu/configs/registry.py:25-111,272-500`` for the LJ
 experiments: ``ExperimentConfig``, the ``lj13`` and ``lj55`` presets, the
-``short`` debug overlay, ``compose``, ``parse_overrides`` and
+``short`` and ``score_only`` debug overlays, ``compose`` (preset, debug
+overlay, YAML overlay, overrides), ``parse_overrides`` and
 ``build_trainer``. The presets are copies of ``pita_tpu``'s (this package
 imports nothing of it), without the TPU-only integrator keys
 (``segment_size``). ``pita_tpu``'s ``integrator.pallas_divergence`` is
 accepted as the port's ``integrator.divergence_tangent_kernel`` (the K4
-route). The other presets, the ``score_only`` overlay and YAML overlays are
-not ported.
+route). The other presets (gmm, dw4, the peptides) are not ported.
 """
 
 import ast
@@ -95,7 +95,7 @@ def _lj55() -> dict:
 
 EXPERIMENTS = {"lj13": _lj13, "lj55": _lj55}
 
-# configs/debug/*.yaml (registry.py:276-290)
+# configs/debug/*.yaml (registry.py:276-295)
 DEBUG_OVERLAYS = {
     "short": {
         "trainer.n_train_batches_per_epoch": 4,
@@ -109,6 +109,12 @@ DEBUG_OVERLAYS = {
         "integrator.num_integration_steps": 2,
         "integrator.end_resampling_step": 2,
         "logger": ("csv",),
+    },
+    "score_only": {
+        "loss.only_train_score": True,
+        "integrator.debias_inference": False,
+        "integrator.resampling_interval": -1,
+        "integrator.resample_at_end": False,
     },
 }
 
@@ -159,12 +165,18 @@ def parse_overrides(args: List[str]) -> dict:
 
 
 def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None,
-            debug: Optional[str] = None) -> ExperimentConfig:
-    """Preset, then the debug overlay, then the overrides."""
+            debug: Optional[str] = None, yaml_path: Optional[str] = None) -> ExperimentConfig:
+    """Preset, then the debug overlay, then the YAML file's keys (dotted or
+    top-level, as on the command line), then the overrides."""
     if experiment not in EXPERIMENTS:
         raise ValueError(f"experiment {experiment!r} is not ported (have {sorted(EXPERIMENTS)})")
     cfg = copy.deepcopy(EXPERIMENTS[experiment]())
     merged = dict(DEBUG_OVERLAYS[debug]) if debug is not None else {}
+    if yaml_path is not None:
+        import yaml
+
+        with open(yaml_path) as f:
+            merged.update(yaml.safe_load(f) or {})
     merged.update(overrides or {})
     for k, v in merged.items():
         if "." in k:
@@ -206,11 +218,16 @@ def _build_backbone_factory(spec: dict, target):
 def _build_noise_schedule(spec: dict):
     spec = dict(spec)
     kind = spec.pop("kind")
-    if kind != "elucidating":
-        raise ValueError(f"noise schedule {kind!r} is not ported")
-    from pita_torch.schedules import ElucidatingNoiseSchedule
+    from pita_torch import schedules as S
 
-    return ElucidatingNoiseSchedule(**spec)
+    return {
+        "elucidating": S.ElucidatingNoiseSchedule,
+        "geometric": S.GeometricNoiseSchedule,
+        "linear": S.LinearNoiseSchedule,
+        "quadratic": S.QuadraticNoiseSchedule,
+        "power": S.PowerNoiseSchedule,
+        "sub_linear": S.SubLinearNoiseSchedule,
+    }[kind](**spec)
 
 
 def _build_annealing_factory(spec: dict):
@@ -223,9 +240,11 @@ def _build_annealing_factory(spec: dict):
     return lambda af: cls(annealing_factor=af, **spec)
 
 
-def build_trainer(cfg: ExperimentConfig, resume: bool = False, device=None):
+def build_trainer(cfg: ExperimentConfig, resume: bool = False, dem_cfg=None, device=None):
     """The object graph (train.py:58-79) on ``device`` (CUDA by default,
-    raising without a GPU). ``resume`` keeps an existing metrics.csv."""
+    raising without a GPU). ``resume`` keeps an existing metrics.csv; a
+    ``DEMConfig`` (``pita_torch.train.dem``) adds its pretraining phase,
+    which no preset or override builds."""
     from pita_torch.io.logging import make_logger
     from pita_torch.train.trainer import EnergyTempTrainer
 
@@ -238,5 +257,5 @@ def build_trainer(cfg: ExperimentConfig, resume: bool = False, device=None):
         annealing_schedule_factory=_build_annealing_factory(cfg.annealing_schedule),
         loss_cfg=cfg.loss, integrator_cfg=cfg.integrator, cfg=cfg.trainer,
         out_dir=out_dir, logger=make_logger(out_dir, cfg.logger, resume=resume),
-        device=device,
+        dem_cfg=dem_cfg, device=device,
     )

@@ -1,14 +1,17 @@
 """Variance-exploding noise schedules as functions of t.
 
-Counterpart of ``pita_tpu/schedules/noise.py:25-40,149-192``. Each schedule
-gives ``g(t)`` (diffusion coefficient), ``h(t) = ∫_0^t g(s)² ds`` and, where
-it has one, ``t(h)`` and ``dh_dt``; the training noise levels come from
-``sample_ln_sigma`` and the loss diagnostics bin them on ``ln_sigma_bins``.
-Only the Elucidating (Karras rho) schedule is ported so far; it is the one
-the LJ presets use.
+Counterpart of ``pita_tpu/schedules/noise.py``. Each schedule gives
+``g(t)`` (diffusion coefficient), ``h(t) = ∫_0^t g(s)² ds`` and, where it
+has one, ``t(h)`` and ``dh_dt`` (the base class differentiates ``h`` by
+autograd). The two schedules a trainer can use, Geometric and Elucidating
+(Karras rho), also draw the training noise levels (``sample_ln_sigma``,
+from the standard draw ``draw_ln_sigma`` gives or one passed in) and bin
+them for the loss diagnostics (``ln_sigma_bins``); Linear, Quadratic, Power
+and SubLinear serve the sampler only, as in ``pita_tpu``.
 """
 
 import dataclasses
+import math
 
 import torch
 
@@ -32,6 +35,121 @@ class NoiseSchedule:
 
     def t(self, ht):
         raise NotImplementedError(f"{type(self).__name__} has no analytic inverse h^-1")
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearNoiseSchedule(NoiseSchedule):
+    """h(t) = beta * t (noise.py:43)."""
+
+    beta: float
+
+    def g(self, t):
+        return torch.full_like(t, self.beta**0.5)
+
+    def h(self, t):
+        return self.beta * t
+
+    def dh_dt(self, t):
+        return torch.full_like(t, self.beta)
+
+    def t(self, ht):
+        return ht / self.beta
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticNoiseSchedule(NoiseSchedule):
+    """h(t) = beta * t² (noise.py:62)."""
+
+    beta: float
+
+    def g(self, t):
+        return torch.sqrt(self.beta * 2 * t)
+
+    def h(self, t):
+        return self.beta * t**2
+
+    def dh_dt(self, t):
+        return 2 * self.beta * t
+
+    def t(self, ht):
+        return torch.sqrt(ht / self.beta)
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerNoiseSchedule(NoiseSchedule):
+    """h(t) = beta * t^power (noise.py:81)."""
+
+    beta: float
+    power: float
+
+    def g(self, t):
+        return torch.sqrt(self.beta * self.power * t ** (self.power - 1))
+
+    def h(self, t):
+        return self.beta * t**self.power
+
+    def dh_dt(self, t):
+        return self.beta * self.power * t ** (self.power - 1)
+
+    def t(self, ht):
+        return (ht / self.beta) ** (1.0 / self.power)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLinearNoiseSchedule(NoiseSchedule):
+    """h(t) = beta * sqrt(t) (noise.py:101); dh_dt by autograd."""
+
+    beta: float
+
+    def g(self, t):
+        return torch.sqrt(self.beta * 0.5 / (t**0.5 + 1e-3))
+
+    def h(self, t):
+        return self.beta * t**0.5
+
+    def t(self, ht):
+        return (ht / self.beta) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GeometricNoiseSchedule(NoiseSchedule):
+    """EDM's geometric schedule (noise.py:117)."""
+
+    sigma_min: float
+    sigma_max: float
+
+    @property
+    def sigma_diff(self):
+        return self.sigma_max / self.sigma_min
+
+    def g(self, t):
+        return self.sigma_min * (self.sigma_diff**t) * math.sqrt(2 * math.log(self.sigma_diff))
+
+    def h(self, t):
+        return (self.sigma_min * ((self.sigma_diff ** (2 * t)) - 1) ** 0.5) ** 2
+
+    def dh_dt(self, t):
+        return self.g(t) ** 2
+
+    def t(self, ht):
+        # sigma_diff^{2t} = ht / sigma_min^2 + 1
+        return torch.log(ht / self.sigma_min**2 + 1.0) / (2 * math.log(self.sigma_diff))
+
+    def draw_ln_sigma(self, num_samples, generator=None, device=None):
+        """The standard draw of ``sample_ln_sigma``: uniforms on [0, 1)."""
+        return torch.rand(num_samples, generator=generator, device=device)
+
+    def sample_ln_sigma(self, num_samples, uniform=None, generator=None, device=None):
+        """ln σ ~ U[ln σ_min, ln σ_max] (noise.py:140-143), as jax.random.uniform
+        maps its uniforms. ``uniform``: the (num_samples,) draw on [0, 1);
+        drawn from ``generator`` if not given."""
+        if uniform is None:
+            uniform = self.draw_ln_sigma(num_samples, generator, device)
+        lo, hi = math.log(self.sigma_min), math.log(self.sigma_max)
+        return torch.clamp_min(uniform * (hi - lo) + lo, lo)
+
+    def ln_sigma_bins(self, num_bins):
+        return torch.linspace(math.log(self.sigma_min), math.log(self.sigma_max), num_bins + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +186,16 @@ class ElucidatingNoiseSchedule(NoiseSchedule):
             -2 * self.rho * self.term2 * (self.term1 + (1 - t) * self.term2) ** (2 * self.rho - 1)
         )
 
+    def draw_ln_sigma(self, num_samples, generator=None, device=None):
+        """The standard draw of ``sample_ln_sigma``: standard normals."""
+        return torch.randn(num_samples, generator=generator, device=device)
+
     def sample_ln_sigma(self, num_samples, normal=None, generator=None, device=None):
         """ln σ ~ N(P_mean, P_std²) (noise.py:185-187). ``normal``: the
         standard normal draw (num_samples,); drawn from ``generator`` if not
         given."""
         if normal is None:
-            normal = torch.randn(num_samples, generator=generator, device=device)
+            normal = self.draw_ln_sigma(num_samples, generator, device)
         return normal * self.P_std + self.P_mean
 
     def ln_sigma_bins(self, num_bins):

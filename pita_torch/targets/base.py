@@ -1,9 +1,10 @@
 """Base Boltzmann target density.
 
-Counterpart of ``pita_tpu/targets/base.py:28-150`` for what the trainer
-reads: ``log_prob(x)`` ``(..., D) -> (...,)``, ``log_prob_and_force(x)``
-(force = ∇ₓ log_prob by autograd), ``at_temperature``, the train/val/test
-sets and ``interatomic_dist``. Temperature enters as ``-E(x)/T``.
+Counterpart of ``pita_tpu/targets/base.py`` for what the trainer reads:
+``log_prob(x)`` ``(..., D) -> (...,)``, ``log_prob_and_force(x)`` (force =
+∇ₓ log_prob by autograd), ``at_temperature``, the train/val/test sets,
+``interatomic_dist`` and the evaluation hook ``log_on_epoch_end``.
+Temperature enters as ``-E(x)/T``.
 
 A set is built on first use by ``setup_{which}_set(device)`` and kept as a
 host array; ``sample_{which}_set`` draws rows uniformly with replacement
@@ -89,3 +90,10 @@ class Target:
         d2 = ((xr[:, :, None, :] - xr[:, None, :, :]) ** 2).sum(-1)
         iu = torch.triu_indices(self.n_particles, self.n_particles, 1, device=x.device)
         return torch.sqrt(d2[:, iu[0], iu[1]])
+
+    def log_on_epoch_end(self, samples, data, *, prefix: str = "val", out_dir=None,
+                         samples_not_resampled=None, make_plots: bool = False) -> dict:
+        """Target-specific evaluation hook of the trainer's ``evaluate`` and
+        ``test`` (base.py:146-163): extra metrics, and figures under
+        ``out_dir`` with ``make_plots``. A base target adds nothing."""
+        return {}

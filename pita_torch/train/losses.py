@@ -1,7 +1,8 @@
 """The PITA multi-loss training objective.
 
 Counterpart of ``pita_tpu/train/losses.py:37-216``: six weighted losses on
-buffer samples at a sampled noise level ln σ ~ N(P_mean, P_std²):
+buffer samples at a noise level ln σ drawn by the schedule's
+``sample_ln_sigma`` (N(P_mean, P_std²) for Elucidating):
 
 1. score matching: denoiser MSE to x0 with the EDM weight λ(h) = (h+1)/h,
    gated to h ≥ h(time_threshold_score);
@@ -17,8 +18,8 @@ buffer samples at a sampled noise level ln σ ~ N(P_mean, P_std²):
 The gradient flows to both nets from one ``backward``; the energy-score term
 differentiates ∇ₓE_θ again in the weights, which takes backbones on the
 ``"autograd"`` route (``pita_torch.nets.egnn``). Randomness enters through
-``LossDraws`` (the standard normals of ln σ, of the noise, of the DEM
-probes) or a ``torch.Generator``.
+``LossDraws`` (the schedule's standard draw of ln σ, the standard
+normals of the noise and of the DEM probes) or a ``torch.Generator``.
 """
 
 import dataclasses
@@ -54,14 +55,17 @@ class LossConfig:
 
 
 class LossDraws(NamedTuple):
-    ln_sigma_normal: torch.Tensor  # (B,) standard normals of ln σ
+    # (B,) the schedule's standard draw of ln σ (draw_ln_sigma): normals for
+    # Elucidating, uniforms on [0, 1) for Geometric
+    ln_sigma_draw: torch.Tensor
     noise: torch.Tensor  # (B, D) standard normals of the noise
     dem_eps: Optional[torch.Tensor] = None  # (B, K, D) DEM probes, when that loss is on
 
 
-def draw_losses(cfg: LossConfig, B: int, D: int, generator, device) -> LossDraws:
+def draw_losses(cfg: LossConfig, noise_schedule, B: int, D: int, generator,
+                device) -> LossDraws:
     """The draws of one ``compute_losses`` call from ``generator``."""
-    ln = torch.randn(B, generator=generator, device=device)
+    ln = noise_schedule.draw_ln_sigma(B, generator, device)
     z = torch.randn((B, D), generator=generator, device=device)
     dem = None
     if cfg.w_dem_energy > 0:
@@ -89,8 +93,8 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
     """
     B, D = x0.shape
     if draws is None:
-        draws = draw_losses(cfg, B, D, generator, x0.device)
-    ln_sigma = noise_schedule.sample_ln_sigma(B, normal=draws.ln_sigma_normal)
+        draws = draw_losses(cfg, noise_schedule, B, D, generator, x0.device)
+    ln_sigma = noise_schedule.sample_ln_sigma(B, draws.ln_sigma_draw)
     ht = torch.exp(2 * ln_sigma)
     h0 = noise_schedule.h(torch.zeros_like(ht))
 

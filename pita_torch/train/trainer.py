@@ -16,16 +16,22 @@ Counterpart of ``pita_tpu/train/trainer.py`` (``fill_with_quality_floor``
   in chain islands of at most ``max_chains_per_integrate``, and at a rung
   transition the next rung's buffer fill, with the measured-quality floor
   and its escalation;
-- the test phase over ladder pairs, and atomic checkpoints.
+- the test phase over ladder pairs, and atomic checkpoints;
+- with a ``DEMConfig`` (``dem_cfg``), DEM pretraining first (:510-620):
+  ``num_training_epochs`` epochs of the score net on ``pretrain_loss`` over
+  buffer 0, which starts from the prior, with a plain reverse-SDE refill of
+  buffer 0 every ``check_val_every_n_epochs`` epochs; the ladder starts after
+  them;
+- the evaluation figures (``make_plots``, :1066-1092) and the target's
+  ``log_on_epoch_end`` hook.
 
 A JAX epoch is one jitted ``lax.scan``; here it is a Python loop of steps
 that never wait on the device (the rung of each batch is drawn once an
 epoch). Randomness comes from the trainer's ``torch.Generator`` (seeded with
-``cfg.seed``); ``train_step`` also takes its draws as an argument
-(``StepDraws``), so a test can feed it the numbers JAX drew. Not ported: the
-DEM phase (:510-620) and the evaluation plots (:1070), which raise when
-asked for; ``prewarm_eval_compiles`` (:729) warms XLA compiles and has no
-counterpart here.
+``cfg.seed``); ``train_step`` and ``dem_train_step`` also take their draws
+as an argument (``StepDraws``, ``DEMStepDraws``), so a test can feed them
+the numbers JAX drew. ``prewarm_eval_compiles`` (:729) warms XLA compiles
+and has no counterpart here.
 """
 
 import dataclasses
@@ -53,6 +59,7 @@ from pita_torch.train.buffer import (
     sample_indices,
     stack_buffers,
 )
+from pita_torch.train.dem import DEMDraws, draw_dem, pretrain_loss
 from pita_torch.train.losses import LossConfig, LossDraws, compute_losses, draw_losses
 from pita_torch.train.losses import stratified_losses
 from pita_torch.train.optim import adam_init, adam_update, clip_by_global_norm, make_lr_schedule
@@ -140,11 +147,11 @@ class TrainerConfig:
     reinitialize_networks: bool = False
     prioritize_buffer: bool = False
     sample_with_replacement: bool = True
-    make_plots: bool = False  # not ported: True raises
+    make_plots: bool = False
     should_mean_free: bool = True
     precondition_beta: bool = False
     seed: int = 12345
-    dem_num_training_epochs: int = 0  # not ported: > 0 raises
+    dem_num_training_epochs: int = 0  # set from dem_cfg when one is given
     skip_temp: bool = False
     num_skip_temps: int = 1
     # transition fills (trainer.py:206-234): ESS-triggered resampling and
@@ -177,16 +184,22 @@ class StepDraws(NamedTuple):
     loss: LossDraws
 
 
+class DEMStepDraws(NamedTuple):
+    """The random numbers of one DEM pretraining step."""
+
+    idx: torch.Tensor  # (batch,) rows of buffer 0
+    rot_normal: Optional[torch.Tensor]  # (batch, d, d) Gaussians of the rotations
+    loss: DEMDraws
+
+
 class EnergyTempTrainer:
     def __init__(self, target, backbone_factory: Callable, noise_schedule,
                  annealing_schedule_factory: Callable, loss_cfg: LossConfig,
                  integrator_cfg: IntegratorConfig, cfg: TrainerConfig,
-                 out_dir: str = "outputs", logger=None, device=None):
-        if cfg.dem_num_training_epochs > 0:
-            raise NotImplementedError("the DEM phase (pita_tpu/train/dem.py) is not ported")
-        if cfg.make_plots:
-            raise NotImplementedError("the evaluation plots (pita_tpu/io/plotting.py) are "
-                                      "not ported; set trainer.make_plots=false")
+                 out_dir: str = "outputs", logger=None, dem_cfg=None, device=None):
+        if dem_cfg is not None and dem_cfg.num_training_epochs != cfg.dem_num_training_epochs:
+            cfg = cfg.replace(dem_num_training_epochs=dem_cfg.num_training_epochs)
+        self.dem_cfg = dem_cfg
         self.device = resolve_device(device)
         self.cfg = cfg
         self.loss_cfg = loss_cfg
@@ -212,7 +225,9 @@ class EnergyTempTrainer:
         if cfg.num_epochs_per_temp is not None:
             if len(cfg.num_epochs_per_temp) != self.n_temps - 1:
                 raise ValueError("num_epochs_per_temp needs one entry per rung transition")
-            self.update_temp_epoch = np.cumsum(cfg.num_epochs_per_temp)
+            # the ladder starts after the DEM epochs (:294-298)
+            self.update_temp_epoch = (np.cumsum(cfg.num_epochs_per_temp)
+                                      + cfg.dem_num_training_epochs)
         else:
             if self.n_temps != 1:
                 raise ValueError("a ladder of several rungs needs num_epochs_per_temp")
@@ -279,8 +294,9 @@ class EnergyTempTrainer:
                      dim=self.dim, should_mean_free=self.mean_free)
 
     def populate_initial_buffer(self):
-        """Fill the rung-0 buffer from the train set or the prior (:1229-1247)."""
-        if self.cfg.init_from_prior:
+        """Fill the rung-0 buffer from the train set, or from the prior with
+        ``init_from_prior`` or a DEM phase (:378-393)."""
+        if self.cfg.init_from_prior or self.cfg.dem_num_training_epochs > 0:
             prior = Prior(scale=math.sqrt(self._h_start()), n_particles=self.n_particles,
                           spatial_dim=self.n_spatial_dim, dim=self.dim,
                           should_mean_free=self.mean_free)
@@ -304,7 +320,8 @@ class EnergyTempTrainer:
         com = None
         if self.is_molecule and not self.mean_free:
             com = torch.randn((B, 1, d), generator=gen, device=dev)
-        return StepDraws(idx, rot, com, draw_losses(self.loss_cfg, B, self.dim, gen, dev))
+        return StepDraws(idx, rot, com,
+                         draw_losses(self.loss_cfg, self.noise_schedule, B, self.dim, gen, dev))
 
     def train_step(self, temp_idx: int, draws: Optional[StepDraws] = None):
         """One optimizer step on a batch of rung ``temp_idx``'s buffer
@@ -324,6 +341,16 @@ class EnergyTempTrainer:
             float(self.inverse_temperatures[temp_idx]), target=self.targets[temp_idx],
             n_particles=n_p, n_spatial_dim=n_d, mean_free=self.mean_free, draws=d.loss)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
+        g_norm = self._apply_gradients(grads)
+        scalars = {k: v.detach() for k, v in aux.items()
+                   if not k.endswith("per_sample") and k != "ln_sigma"}
+        return scalars, g_norm
+
+    def _apply_gradients(self, grads) -> torch.Tensor:
+        """Global-norm clipping and Adam over both nets (a None gradient
+        counts as zeros), the update, then the EMA of both nets. Returns the
+        global gradient norm before clipping."""
+        cfg = self.cfg
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
         grads, g_norm = clip_by_global_norm(grads, cfg.grad_clip)
         updates, self.opt_state = adam_update(grads, self.opt_state,
@@ -334,9 +361,7 @@ class EnergyTempTrainer:
         if cfg.ema_decay > 0:
             self.ema_score.update(self.score_net, cfg.ema_decay)
             self.ema_energy.update(self.energy_net, cfg.ema_decay)
-        scalars = {k: v.detach() for k, v in aux.items()
-                   if not k.endswith("per_sample") and k != "ln_sigma"}
-        return scalars, g_norm.detach()
+        return g_norm.detach()
 
     def epoch_temp_indices(self) -> list:
         """The rung of each batch of an epoch: uniform over the active rungs
@@ -351,6 +376,77 @@ class EnergyTempTrainer:
         """One epoch of buffer-batch training; the mean of each loss."""
         steps = [self.train_step(i)[0] for i in self.epoch_temp_indices()]
         return {k: float(torch.stack([s[k] for s in steps]).mean()) for k in steps[0]}
+
+    # -------------------------------------------------------- DEM pretraining
+
+    def dem_draw_step(self) -> DEMStepDraws:
+        """One DEM step's draws from the trainer's generator."""
+        dem, gen, dev = self.dem_cfg, self.generator, self.device
+        B, d = dem.training_batch_size, self.n_spatial_dim
+        idx = sample_indices(buffer_view(self.buffers, 0), B, False,
+                             self.cfg.sample_with_replacement, gen)
+        rot = torch.randn((B, d, d), generator=gen, device=dev) if self.is_molecule else None
+        return DEMStepDraws(idx, rot, draw_dem(dem, B, self.dim, gen, dev))
+
+    def dem_train_step(self, draws: Optional[DEMStepDraws] = None):
+        """One DEM pretraining step on a rotated batch of buffer 0
+        (trainer.py:522-552). The score net gets the gradient of
+        ``pretrain_loss``; the energy net's gradient is zeros, which go
+        through the clipping and Adam as optax's do: they count in the global
+        norm, decay the moments and move the weights by what the moments
+        still hold. Returns (the loss, the global gradient norm)."""
+        dem = self.dem_cfg
+        d = draws if draws is not None else self.dem_draw_step()
+        n_p, n_d = self.n_particles, self.n_spatial_dim
+        x0, _, f0, _ = buffer_sample(buffer_view(self.buffers, 0), dem.training_batch_size,
+                                     idx=d.idx)
+        if self.is_molecule:
+            x0, f0 = rotate_augment(x0, f0, n_p, n_d, normal=d.rot_normal)
+        loss = pretrain_loss(self.score, dem, x0, f0, float(self.inverse_temperatures[0]),
+                             target=self.targets[0], n_particles=n_p, n_spatial_dim=n_d,
+                             mean_free=self.mean_free, draws=d.loss)
+        n_score = len(list(self.score_net.parameters()))
+        g_s = torch.autograd.grad(loss, self.params[:n_score], allow_unused=True)
+        g_norm = self._apply_gradients(list(g_s) + [None] * (len(self.params) - n_score))
+        return loss.detach(), g_norm
+
+    def dem_train_one_epoch(self) -> dict:
+        """One DEM pretraining epoch of ``n_train_batches_per_epoch`` steps
+        (energytemp_module.py:696-701); the mean loss."""
+        losses = [self.dem_train_step()[0] for _ in range(self.cfg.n_train_batches_per_epoch)]
+        return {"pretrain_target_score_loss": float(torch.stack(losses).mean())}
+
+    def eval_epoch_end_dem(self, prefix: str = "val") -> dict:
+        """Plain reverse-SDE sampling (no energy net, no weights, no
+        resampling) to refill buffer 0 (:576-620)."""
+        dem = self.dem_cfg
+        target0 = self.targets[0]
+        cfg_dem = self.integrator_cfg.replace(
+            num_integration_steps=dem.num_integration_steps, debias_inference=False,
+            resampling_interval=-1, resample_at_end=False, start_resampling_step=0,
+            end_resampling_step=dem.num_integration_steps)
+        res = self.generate_samples(target0, dem.num_samples_to_generate_per_epoch,
+                                    inverse_temp=float(self.inverse_temperatures[0]),
+                                    annealing_factor=1.0, integrator_cfg=cfg_dem)
+        samples = res.samples
+        energies, forces = target0.log_prob_and_force(samples)
+        buf0 = buffer_add(buffer_view(self.buffers, 0), samples, energies, forces)
+        self.buffers = buffer_set(self.buffers, 0, buf0)
+        metrics = {f"{prefix}/dem/energy_mean": float(-energies.mean())}
+        try:
+            data = target0.sample_val_set(samples.shape[0], self.generator)
+        except (ValueError, NotImplementedError):
+            data = None
+        if data is not None:
+            metrics.update(energy_distances(energies, target0.log_prob(data),
+                                            prefix=f"{prefix}/dem",
+                                            energy_threshold=self.cfg.energy_masking_threshold))
+            if self.is_molecule:
+                metrics[f"{prefix}/dem/dist_w2"] = interatomic_dist_w2(target0, samples, data)
+        if self.logger is not None:
+            self.logger.log_metrics(metrics, step=self.epoch)
+        self.metrics_history.append(dict(metrics, epoch=self.epoch))
+        return metrics
 
     # -------------------------------------------------------------- sampling
 
@@ -524,6 +620,11 @@ class EnergyTempTrainer:
             metrics[f"{prefix}/data_energy_std"] = float(data_energies.std(correction=0))
             if self.is_molecule:
                 metrics[f"{prefix}/dist_w2"] = interatomic_dist_w2(target_lower, samples, data)
+            # the target's own evaluation hook (energytemp_module.py:954)
+            metrics.update(target_lower.log_on_epoch_end(
+                samples, data, prefix=prefix,
+                out_dir=os.path.join(self.out_dir, "plots", f"epoch_{self.epoch}"),
+                samples_not_resampled=res_nores.samples, make_plots=cfg.make_plots))
         metrics[f"{prefix}/energy_mean"] = float(-energies.mean())
         metrics[f"{prefix}/energy_mean_no_resampling"] = float(
             -target_lower.log_prob(res_nores.samples).mean())
@@ -540,7 +641,30 @@ class EnergyTempTrainer:
         if self.logger is not None:
             self.logger.log_metrics(metrics, step=self.epoch)
         self.metrics_history.append(dict(metrics, epoch=self.epoch))
+        if cfg.make_plots:
+            self._make_eval_plots(res, res_nores, target_lower, samples, energies, data)
         return metrics
+
+    def _make_eval_plots(self, res, res_nores, target, samples, energies, data):
+        """The reference's evaluation figures under out_dir/plots/epoch_<n>
+        (trainer.py:1066-1092); needs matplotlib."""
+        from pita_torch.io import plotting as P
+
+        pdir = os.path.join(self.out_dir, "plots", f"epoch_{self.epoch}")
+        if data is not None:
+            P.plot_energy_histograms(energies, target.log_prob(data), pdir,
+                                     not_resampled_energies=target.log_prob(res_nores.samples))
+            if self.is_molecule:
+                P.plot_interatomic_distances(target, samples, data, pdir)
+        if getattr(target, "name", "") == "gmm":
+            P.plot_gmm_contours(target, samples, pdir)
+        if hasattr(target, "dihedrals"):
+            phi, psi = target.dihedrals(samples)
+            P.plot_ramachandran(phi, psi, pdir, temperature=target.temperature)
+        P.plot_logweights(res_nores.logweights, pdir)
+        P.plot_num_unique(res.num_unique, pdir)
+        P.plot_acceptance(res.acceptance_rates, pdir)
+        P.plot_sde_term_stats(res.term_stats, pdir)
 
     # --------------------------------------------------------------- state
 
@@ -599,9 +723,11 @@ class EnergyTempTrainer:
     def fit(self, max_epochs: Optional[int] = None, log_every: int = 10,
             ckpt_path: Optional[str] = None, resume: bool = False,
             time_checkpoint_seconds: Optional[float] = None):
-        """The training loop (train.py:106 and Lightning's epoch loop): an
-        evaluation every ``check_val_every_n_epoch`` epochs and at every rung
-        transition, a checkpoint after each evaluation and at the end."""
+        """The training loop (train.py:106 and Lightning's epoch loop): the
+        DEM epochs first, with a refill of buffer 0 every
+        ``dem_cfg.check_val_every_n_epochs`` of them; then an evaluation every
+        ``check_val_every_n_epoch`` epochs and at every rung transition, a
+        checkpoint after each evaluation and at the end."""
         from pita_torch.io.checkpoint import (TimeIntervalCheckpointer, restore_checkpoint,
                                               save_checkpoint)
 
@@ -618,12 +744,17 @@ class EnergyTempTrainer:
         best_metric, stall = np.inf, 0
         while self.epoch < max_epochs:
             t0 = time.time()
-            aux = self.train_one_epoch()
+            in_dem_phase = self.dem_cfg is not None and self.epoch < cfg.dem_num_training_epochs
+            aux = self.dem_train_one_epoch() if in_dem_phase else self.train_one_epoch()
             dt = time.time() - t0
             if self.logger is not None and self.epoch % log_every == 0:
                 self.logger.log_metrics({f"train/{k}": v for k, v in aux.items()}
                                         | {"train/epoch_s": dt}, step=self.epoch)
-            if ((self.epoch + 1) % cfg.check_val_every_n_epoch == 0
+            if in_dem_phase:
+                # the DEM refill cadence (energytemp_module.py:725-732)
+                if self.epoch % self.dem_cfg.check_val_every_n_epochs == 0 and self.epoch > 0:
+                    self.eval_epoch_end_dem("val")
+            elif ((self.epoch + 1) % cfg.check_val_every_n_epoch == 0
                     or (self.epoch + 1) in self.update_temp_epoch):
                 self.eval_step_losses("val")
                 val_metrics = self.evaluate("val")
@@ -690,6 +821,9 @@ class EnergyTempTrainer:
                 m[f"{prefix}/data_energy_std"] = float(data_energies.std(correction=0))
                 if self.is_molecule:
                     m[f"{prefix}/dist_w2"] = interatomic_dist_w2(self.targets[j], sub, data)
+                m.update(self.targets[j].log_on_epoch_end(
+                    sub, data, prefix=prefix, out_dir=os.path.join(self.out_dir, "plots", "test"),
+                    make_plots=cfg.make_plots))
                 all_metrics.update(m)
             all_metrics[f"{prefix}/energy_mean"] = float(-energies.mean())
         if self.logger is not None:

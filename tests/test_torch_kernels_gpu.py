@@ -539,3 +539,51 @@ def test_training_step_repacks_the_sampler_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     for a, b in zip((ho, xo, dh, dx, dea), (*ref, *ref_b)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.parametrize("n", [13, 55])
+def test_idem_target_through_the_lj_kernel_matches_plain(cuda, n):
+    """∇ₓR_t of 4 configurations over 1,000 probes each: the 4,000 probes in
+    one K1 launch against the plain log_prob_and_force on the same probes.
+    Softmax weights magnify K1's log p error (<= 1e-5 of the largest), so
+    the target holds within 1e-3 of its largest entry."""
+    from pita_torch.train.dem_estimator import estimate_grad_Rt
+
+    B, K = 4, 1000
+    x = _lj_inputs(n, B, seed=n, device=cuda, close=False)
+    t = LennardJones(n, smooth=n == 55, temperature=1.0)
+    ht = torch.tensor([1e-3, 5e-3, 1e-2, 2e-2], device=cuda)
+    eps = torch.randn(B, K, 3 * n, generator=torch.Generator(cuda).manual_seed(n), device=cuda)
+    before = ljop.lj_log_prob_and_force.launches
+    got = estimate_grad_Rt(ht, x, t.log_prob_and_force, eps)
+    assert ljop.lj_log_prob_and_force.launches == before + 1
+    ref = estimate_grad_Rt(ht, x, lambda y: ljop.lj_log_prob_and_force_plain(y, n, **_lj_kw(t)),
+                           eps)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 3 * n) and torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+def test_hmc_steps_through_the_lj_kernel_match_plain(cuda):
+    """Three HMC steps of 10 leapfrogs on LJ55 with the same momenta and
+    uniforms: by K1 (1 + 3·12 launches) and by the plain version; the same
+    acceptance rate each step and step size, the positions within 1e-4 of
+    the largest."""
+    from pita_torch.baselines.mcmc import hmc_chain
+
+    B, L = 64, 10
+    t = LennardJones(55, smooth=True, temperature=1.0)
+    x0 = _lj_inputs(55, B, seed=7, device=cuda, close=False)
+    g = torch.Generator(cuda).manual_seed(3)
+    draws = [(torch.randn(x0.shape, generator=g, device=cuda),
+              torch.rand(B, generator=g, device=cuda)) for _ in range(3)]
+    before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
+    got = hmc_chain(t.log_prob_and_force, x0, 3, step_size=5e-3, n_leapfrog=L, draws=draws)
+    assert (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches) == (
+        before[0] + 1 + 3 * (L + 2), before[1])
+    ref = hmc_chain(lambda y: ljop.lj_log_prob_and_force_plain(y, 55, **_lj_kw(t)), x0, 3,
+                    step_size=5e-3, n_leapfrog=L, draws=draws)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and float(got[2]) == float(ref[2])
+    assert 0.0 < float(got[1].mean()) < 1.0
+    assert (got[0] - ref[0]).abs().max() <= 1e-4 * ref[0].abs().max()
