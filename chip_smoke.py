@@ -107,8 +107,6 @@ off for matmuls and convolutions, so float32 stays float32.
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
 --training-only runs phases 1 and 11 only; --tools-only runs phases 1 and
 12 only (eval_cli then restores the DEM trainer's checkpoint);
---protocol-assets runs phase 1 and phase 12's protocol gate on every
-committed LJ55 asset of data/ (a measurement of the gate, not a check);
 --profile adds a torch.profiler breakdown of each timed main path (for the
 K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
@@ -1115,19 +1113,24 @@ def profiled_ms(run, key, n=50):
     return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
 
 
-def k1_entry(target, x, label, launches):
-    """K1 against its plain version at the shape x, its CUDA-event and
-    profiled time per launch, and its bound (lj_bound, as phase 2 counts it)."""
+def k1_entry(target, x, label, launches, phase=11, n_ref=None):
+    """K1 against its plain version at the shape x (on its first ``n_ref``
+    rows when given: the plain version holds (B, N, N) tensors, 6 GB each at
+    512,000 rows), its CUDA-event and profiled time per launch, the plain
+    version's time (in chunks of ``n_ref``) and its bound (lj_bound, as
+    phase 2 counts it). Returns the kernels-line entry and the device time."""
     import torch
 
     from pita_torch.ops import lj as ljop
 
     N, B = target.n_particles, x.shape[0]
+    n_ref = n_ref or B
     kw = lj_kwargs(target)
+    plain = lambda y: ljop.lj_log_prob_and_force_plain(y, N, **kw)
     lp_k, f_k = ljop.lj_log_prob_and_force(x, N, **kw)
-    lp_p, f_p = ljop.lj_log_prob_and_force_plain(x, N, **kw)
+    lp_p, f_p = plain(x[:n_ref])
     torch.cuda.synchronize()
-    (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k, lp_p), rel_err(f_k, f_p)
+    (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k[:n_ref], lp_p), rel_err(f_k[:n_ref], f_p)
     if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
         fail(f"K1 disagrees with its plain version at {label}")
     run = lambda: ljop.lj_log_prob_and_force(x, N, **kw)
@@ -1136,21 +1139,22 @@ def k1_entry(target, x, label, launches):
     # the floor of a launch on the device: a one-element PyTorch add
     one = torch.zeros(1, device=x.device)
     floor_ms = profiled_ms(lambda: one.add_(1.0), "elementwise")
-    plain = cuda_ms(lambda: ljop.lj_log_prob_and_force_plain(x, N, **kw), reps=5)
-    bnd, by = lj_bound(x, target, label, 11)
+    plain_ms = cuda_ms(lambda: [plain(x[i:i + n_ref]) for i in range(0, B, n_ref)], reps=5)
+    bnd, by = lj_bound(x, target, label, phase)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     ms_or = lambda v: "not measured (no kernel row)" if v is None else f"{v:.4f} ms"
     dev, floor = ms_or(dev_ms), ms_or(floor_ms)
-    print(f"[phase 11] K1 at {label} (B={B}): rel err logp {r_lp:.2e} force {r_f:.2e} "
-          f"(tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone {dev} "
-          f"(torch.profiler; a one-element add's {floor}), plain {plain:.4f} ms, bound "
-          f"{bnd:.5f} ms ({by}); "
-          f"{launches} launches")
+    print(f"[phase {phase}] K1 at {label} (B={B}, {ljop.lanes_per_particle(N, B, sms)} lanes a "
+          f"particle on {sms} SMs): rel err on the first {n_ref} logp {r_lp:.2e} force "
+          f"{r_f:.2e} (tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone "
+          f"{dev} (torch.profiler; a one-element add's {floor}), plain {plain_ms:.4f} ms (in "
+          f"chunks of {n_ref}), bound {bnd:.5f} ms ({by}); {launches} launches")
     if dev_ms is None:
         fail(f"K1's device time at {label} was not measured (no lj_pairs_kernel row)")
     return dict(name=f"lj_log_prob_and_force ({label})", route="cuda",
                 source="pita_torch/csrc/lj.cu", replaces="pita_tpu/ops/pallas/lj.py:108",
-                launches=launches, max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=None)
+                launches=launches, max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None), dev_ms
 
 
 class _FirstK1:
@@ -1194,30 +1198,48 @@ def train_set_in_turns(target):
                                 for w in secs))
 
 
+def layer0_inputs(tr, x_flat):
+    """The EMA score net's layer 0 at t = 0.5 on the chains x_flat: its
+    inputs h, x, edge_attr, its weights, config and packed weights."""
+    import torch
+
+    from pita_torch.nets.precondition import coeffs
+
+    bb = tr.ema_score.module
+    layer = bb.layers[0]
+    B, N = x_flat.shape[0], tr.n_particles
+    ht = tr.noise_schedule.h(torch.full((B,), 0.5, device=x_flat.device))
+    _, c_in, _, c_noise = coeffs(ht)
+    x_in = c_in[:, None] * x_flat
+    xs = x_in.reshape(B, N, 3).contiguous()
+    h = bb.embed(c_noise, x_in, 1.0).contiguous()
+    ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
+    return h, xs, ea, layer.weights(), layer.cfg, layer.packed(x_flat.device)
+
+
+def k2_bound(h, packed):
+    """The f32 K2's bound at h (B, N, F): h, x and edge_attr read, h and x
+    written, the weights read; the edge and node products; the SFU terms."""
+    B, N, F = h.shape
+    E = B * N * (N - 1)
+    return bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + 4 * packed.numel(),
+                    E * 4 * F * F + B * N * 10 * F * F, PEAK_F32, (3 * F + 2) * E)
+
+
 def fill_layer_entries(tr, x_flat, counts):
     """The f32 scalar K2, K3 and K4 at the fill's launches (256 chains for
     the drift's networks; 64-chain chunks of 64 tangents for the K4 route),
     on the EMA score net's layer 0: against their plain versions, timed."""
     import torch
 
-    from pita_torch.nets.precondition import coeffs
     from pita_torch.ops import egnn_layer as el
     from pita_torch.ops import egnn_tangent as et
 
-    bb = tr.ema_score.module
-    layer = bb.layers[0]
-    dev = x_flat.device
-    B, N, F = x_flat.shape[0], tr.n_particles, bb.hidden_nf
-    ht = tr.noise_schedule.h(torch.full((B,), 0.5, device=dev))
-    _, c_in, _, c_noise = coeffs(ht)
-    x_in = c_in[:, None] * x_flat
-    xs = x_in.reshape(B, N, 3).contiguous()
-    h = bb.embed(c_noise, x_in, 1.0).contiguous()
-    ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
+    h, xs, ea, w, cfg, packed = layer0_inputs(tr, x_flat)
+    (B, N, F), dev = h.shape, h.device
     gen = torch.Generator(dev).manual_seed(11)
     gh = torch.randn(h.shape, generator=gen, device=dev)
     gx = torch.randn(xs.shape, generator=gen, device=dev)
-    w, cfg, packed = layer.weights(), layer.cfg, layer.packed(dev)
     fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
     bwd = lambda: el.egnn_layer_backward(h, xs, ea, gh, gx, w, packed=packed, **cfg)
     got = (*fwd(), *bwd())
@@ -1251,8 +1273,7 @@ def fill_layer_entries(tr, x_flat, counts):
     node_ops = B * N * 10 * F * F
     wbytes = 4 * packed.numel()
     sfu = lambda e: (3 * F + 2) * e
-    bf = bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + wbytes,
-                  E * 4 * F * F + node_ops, PEAK_F32, sfu(E))
+    bf = k2_bound(h, packed)
     bb_ = bound_ms(4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes,
                    E * 8 * F * F + 2 * node_ops, PEAK_F32, sfu(E))
     bt = bound_ms(4 * (2 * Bc * Tc * N * (F + 3) + Bc * N * (F + 6) + Bc * N * N + Tc * N * 3)
@@ -1439,9 +1460,9 @@ def phase_training(kernels, tmp, profile=False):
         fail("the filled buffer holds non-finite energies")
     layer_rows = fill_layer_entries(tr, x_fill, fill_counts)
     rows = [k1_entry(tr.targets[0], torch.as_tensor(data[:512], device="cuda"),
-                     "train-set MCMC, 512 chains", k1_set),
+                     "train-set MCMC, 512 chains", k1_set)[0],
             k1_entry(tr.targets[1], x_fill, "fill, 256 chains",
-                     fill_counts["lj_log_prob_and_force"])] + layer_rows
+                     fill_counts["lj_log_prob_and_force"])[0]] + layer_rows
     # what one step of the fill costs by route, 256 chains, the EMA nets
     nets = tr._eval_wrappers()
     anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
@@ -1552,19 +1573,9 @@ def refill_k2_entry(tr, x_flat, launches):
     score net's layer 0 at t = 0.5: against layer_step, timed, its bound."""
     import torch
 
-    from pita_torch.nets.precondition import coeffs
     from pita_torch.ops import egnn_layer as el
 
-    bb = tr.ema_score.module
-    B, N, F = x_flat.shape[0], tr.n_particles, bb.hidden_nf
-    ht = tr.noise_schedule.h(torch.full((B,), 0.5, device=x_flat.device))
-    _, c_in, _, c_noise = coeffs(ht)
-    x_in = c_in[:, None] * x_flat
-    xs = x_in.reshape(B, N, 3).contiguous()
-    h = bb.embed(c_noise, x_in, 1.0).contiguous()
-    ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
-    layer = bb.layers[0]
-    w, cfg, packed = layer.weights(), layer.cfg, layer.packed(x_flat.device)
+    h, xs, ea, w, cfg, packed = layer0_inputs(tr, x_flat)
     fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
     got = fwd()
     with torch.no_grad():
@@ -1574,62 +1585,16 @@ def refill_k2_entry(tr, x_flat, launches):
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     if not max(e[0] for e in errs) <= TOL_F32:
         fail("the f32 K2 disagrees with its plain version at the refill's 2,000 chains")
-    ms = cuda_ms(fwd)
-    E = B * N * (N - 1)
-    bnd = bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + 4 * packed.numel(),
-                   E * 4 * F * F + B * N * 10 * F * F, PEAK_F32, (3 * F + 2) * E)
-    print(f"[phase 12] f32 scalar K2 at the refill's {B} chains (EMA score net, layer 0): rel "
-          f"err h_out {errs[0][0]:.2e}, x_out {errs[1][0]:.2e} (tol {TOL_F32}); {ms:.4f} ms, "
-          f"plain {plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} launches")
+    ms, bnd = cuda_ms(fwd), k2_bound(h, packed)
+    print(f"[phase 12] f32 scalar K2 at the refill's {h.shape[0]} chains (EMA score net, layer "
+          f"0): rel err h_out {errs[0][0]:.2e}, x_out {errs[1][0]:.2e} (tol {TOL_F32}); "
+          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} "
+          f"launches")
     return dict(name="egcl_forward (phase 12 DEM refill, 2000 chains)", route="cuda",
                 source="pita_torch/csrc/egnn_layer.cu",
                 replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=launches,
                 max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain, bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None)
-
-
-def idem_k1_entry(target, probes, launches):
-    """K1 at the iDEM launch (512 chains x 1,000 probes): against its plain
-    version on the first 8,000 probes, timed by CUDA events and by
-    torch.profiler; the plain version timed over all of them in chunks of
-    8,000 (in one call it would hold (B, N, N) tensors of 6 GB); the bound.
-    Returns the kernels-line entry and the device time."""
-    import torch
-
-    from pita_torch.ops import lj as ljop
-
-    N, B = target.n_particles, probes.shape[0]
-    kw = lj_kwargs(target)
-    n_ref = IDEM_REF_CHAINS * 1000
-    lp_k, f_k = ljop.lj_log_prob_and_force(probes, N, **kw)
-    lp_p, f_p = ljop.lj_log_prob_and_force_plain(probes[:n_ref], N, **kw)
-    torch.cuda.synchronize()
-    (r_lp, a_lp), (r_f, a_f) = rel_err(lp_k[:n_ref], lp_p), rel_err(f_k[:n_ref], f_p)
-    if not (r_lp <= TOL_LJ and r_f <= TOL_LJ):
-        fail("K1 disagrees with its plain version on the iDEM probes")
-    run = lambda: ljop.lj_log_prob_and_force(probes, N, **kw)
-    ms = cuda_ms(run, reps=20)
-    dev_ms = profiled_ms(run, "lj_pairs_kernel", n=20)
-    if dev_ms is None:
-        fail("K1's device time at the iDEM launch was not measured (no lj_pairs_kernel row)")
-
-    def plain_all():
-        for i in range(0, B, n_ref):
-            ljop.lj_log_prob_and_force_plain(probes[i:i + n_ref], N, **kw)
-
-    plain = cuda_ms(plain_all, reps=1, warmup=1)
-    bnd, by = lj_bound(probes, target, "the iDEM launch", 12)
-    sms = torch.cuda.get_device_properties(probes.device).multi_processor_count
-    print(f"[phase 12] K1 at the iDEM launch (B={B}, {ljop.lanes_per_particle(N, B, sms)} lanes "
-          f"a particle on {sms} SMs): rel err on the first {n_ref} logp {r_lp:.2e} force "
-          f"{r_f:.2e} (tol {TOL_LJ}); {ms:.4f} ms a launch by CUDA events, device time alone "
-          f"{dev_ms:.4f} ms (torch.profiler), plain {plain:.2f} ms (in chunks of {n_ref}), "
-          f"bound {bnd:.5f} ms ({by}); {launches} launches")
-    return dict(name="lj_log_prob_and_force (phase 12 iDEM target, 512000 configurations)",
-                route="cuda", source="pita_torch/csrc/lj.cu",
-                replaces="pita_tpu/ops/pallas/lj.py:108", launches=launches,
-                max_abs_err=max(a_lp, a_f), ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=None), dev_ms
 
 
 def profile_dem_steps(tr, n=3):
@@ -1777,7 +1742,8 @@ def phase_dem(kernels, tmp, data_dir):
           + ", ".join(f"{r:.2e} on {k} (max abs err {a:.3e})" for k, (r, a) in err.items())
           + f"; tol {TOL_IDEM}")
     probes = (xt[:, None, :] + eps * torch.sqrt(ht)[:, None, None]).reshape(-1, xt.shape[1])
-    k1_row, k1_dev = idem_k1_entry(target0, probes, 2 * n_b)
+    k1_row, k1_dev = k1_entry(target0, probes, f"the iDEM target, {B * K} configurations",
+                              sizes.count(B * K), phase=12, n_ref=n * K)
     print(f"[phase 12] K1's device time at the iDEM launch {k1_dev:.4f} ms = "
           f"{100 * k1_dev / step_ms:.3f} % of a DEM step")
     del probes
@@ -1842,15 +1808,13 @@ def phase_mcmc(kernels):
             and bool(torch.isfinite(x).all())):
         fail("HMC's acceptance, step size or positions are not finite")
 
-    if not protocol_gate("LJ55_temp_1.0_val", kernels):
-        fail("the protocol's diagnostics diverge from the committed ones")
+    protocol_gate(kernels)
 
 
-def protocol_gate(name, kernels):
+def protocol_gate(kernels):
     """The gated ten-run protocol at the settings scripts/make_ground_truth.py
-    uses for the committed asset ``name`` (LJ55_temp_<T>_<which>; seed
-    {train 0, val 50, test 90} + int(7 T), warmup 10,000), held to its
-    committed diagnostics by that script's cross-backend tolerance
+    uses for LJ55_temp_1.0_val (seed 50 + int(7 T), warmup 10,000), held to
+    the committed diagnostics by that script's cross-backend tolerance
     (scripts/make_ground_truth.py:133-141): R-hat < 1.05, the R-hat gap
     within 0.02, and the run energy means within max(0.05 x mean committed
     spread, 3.5 x std of the committed run means) of the committed ones.
@@ -1858,27 +1822,24 @@ def protocol_gate(name, kernels):
     The script pairs run r with the committed run r, which shares its seed
     on the same backend. Seeded chains on another backend are fresh draws
     (the script says so), so that pairing is arbitrary here: the gate pairs
-    the runs by rank (the r-th lowest mean with the committed r-th lowest),
-    which a shift of every run or one stray run moves as much as the pairing
-    by index does. The gap by index is printed beside it. Returns whether
-    every arm holds; fails the run if the protocol left K1 or launched the
-    first K1."""
+    the runs by rank (the r-th lowest mean with the committed r-th lowest)
+    and prints the gap by index beside it. tests/protocol_seeds.py measures
+    both pairings over shifted seeds for this port and for pita_tpu."""
     import numpy as np
     import torch
 
     from pita_torch.baselines.mcmc import generate_lj_dataset_reference_protocol
     from pita_torch.targets import LennardJones
 
-    n_part, _, T, which = name.split("_")
-    T, n_part = float(T), int(n_part[2:])
-    seed = {"train": 0, "val": 50, "test": 90}[which] + int(T * 7)
+    name, T = "LJ55_temp_1.0_val", 1.0
+    seed = 50 + int(T * 7)
     with open(os.path.join(REPO, "data", f"{name}.rhat.json")) as f:
         committed = json.load(f)
     reset_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, diag = generate_lj_dataset_reference_protocol(
-        LennardJones(n_part, smooth=True, temperature=T), num_samples=committed["num_samples"],
+        LennardJones(55, smooth=True, temperature=T), num_samples=committed["num_samples"],
         n_runs=committed["n_runs"], seed=seed, warmup=committed["warmup"], device="cuda")
     torch.cuda.synchronize()
     t_proto = time.perf_counter() - t0
@@ -1889,8 +1850,6 @@ def protocol_gate(name, kernels):
     rhat_gap = abs(diag["rhat_energy"] - committed["rhat_energy"])
     tol = max(0.05 * float(np.mean(committed["per_run_energy_std"])), 3.5 * float(np.std(old)))
     c = {f.__name__: f.launches for f in kernels}
-    ok = (diag["converged"] and diag["rhat_energy"] < 1.05 and rank_gap <= tol
-          and rhat_gap <= 0.02)
     print(f"[phase 12] protocol {name} ({committed['num_samples']} samples, "
           f"{committed['n_runs']} runs, warmup {committed['warmup']}, seed {seed}): "
           f"{t_proto:.2f} s, K1 {c['lj_log_prob_and_force']} launches; R-hat "
@@ -1900,11 +1859,12 @@ def protocol_gate(name, kernels):
           f"std of the means {float(np.std(new)):.4f} (committed {float(np.std(old)):.4f}), "
           f"per-run spreads {[round(float(v), 2) for v in diag['per_run_energy_std']]}; largest "
           f"gap to the committed by rank {rank_gap:.4f}, by index {index_gap:.4f} "
-          f"({'within' if index_gap <= tol else 'beyond'} tol), tol {tol:.4f}; "
-          f"{'pass' if ok else 'MISS'}")
+          f"({'within' if index_gap <= tol else 'beyond'} tol), tol {tol:.4f}")
     if c["_lj_scalar"] or not c["lj_log_prob_and_force"]:
         fail("the protocol did not run on K1, or launched the first K1")
-    return ok
+    if not (diag["converged"] and diag["rhat_energy"] < 1.05 and rank_gap <= tol
+            and rhat_gap <= 0.02):
+        fail("the protocol's diagnostics diverge from the committed ones")
 
 
 def phase_clis(kernels, tmp, ckpt, data_dir):
@@ -2035,13 +1995,6 @@ def main():
     if "--tools-only" in sys.argv[1:]:  # quick check of the training tools
         with tempfile.TemporaryDirectory() as tmp:
             phase_tools(kernels, tmp)
-        return 0
-    if "--protocol-assets" in sys.argv[1:]:  # the protocol gate on every committed LJ55 asset
-        names = sorted(f[:-len(".rhat.json")] for f in os.listdir(os.path.join(REPO, "data"))
-                       if f.startswith("LJ55_") and f.endswith(".rhat.json"))
-        held = [protocol_gate(n, kernels) for n in names]
-        print(f"[phase 12] protocol gate on {len(names)} committed LJ55 assets: "
-              f"{sum(held)} pass, misses {[n for n, h in zip(names, held) if not h]}")
         return 0
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)

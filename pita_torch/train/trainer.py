@@ -647,7 +647,8 @@ class EnergyTempTrainer:
 
     def _make_eval_plots(self, res, res_nores, target, samples, energies, data):
         """The reference's evaluation figures under out_dir/plots/epoch_<n>
-        (trainer.py:1066-1092); needs matplotlib."""
+        (trainer.py:1066-1092); needs matplotlib. A target's own figures
+        (GMM contours, Ramachandran plots) belong in its log_on_epoch_end."""
         from pita_torch.io import plotting as P
 
         pdir = os.path.join(self.out_dir, "plots", f"epoch_{self.epoch}")
@@ -656,11 +657,6 @@ class EnergyTempTrainer:
                                      not_resampled_energies=target.log_prob(res_nores.samples))
             if self.is_molecule:
                 P.plot_interatomic_distances(target, samples, data, pdir)
-        if getattr(target, "name", "") == "gmm":
-            P.plot_gmm_contours(target, samples, pdir)
-        if hasattr(target, "dihedrals"):
-            phi, psi = target.dihedrals(samples)
-            P.plot_ramachandran(phi, psi, pdir, temperature=target.temperature)
         P.plot_logweights(res_nores.logweights, pdir)
         P.plot_num_unique(res.num_unique, pdir)
         P.plot_acceptance(res.acceptance_rates, pdir)
