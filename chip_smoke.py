@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LJ55 sampling and training paths on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's LJ55 sampling and training paths and its alanine-peptide
+path on one NVIDIA GPU (H100).
 
 Usage, from the root of the repository on a machine with a CUDA card:
 
@@ -98,7 +99,24 @@ Phases, each printing lines, each failing the run on disagreement:
      eval_cli on phase 11's checkpoint (256 chains x 100 steps, the K4
      route, one ladder pair), train_cli -m over two seeds and train_cli with
      a YAML overlay (geometric schedule, score only), LJ13 debug=short cut
-     to 2 epochs without the test phase.
+     to 2 epochs without the test phase;
+ 13. the alanine-peptide path (no kernel of the port's; the force field, MD
+     and the DiT3D are plain PyTorch, as pita_tpu runs them in XLA): the
+     force field's energies and forces on the card against the CPU (the 800
+     frames of aldp_md_T300.npz, and aldp, al3, al4 minimized under 1e-3 nm
+     noise, 2,048 each; tol 1e-5) and against the committed MD energies
+     (5e-3 kcal/mol), timed at 2,048; generate_md_cli at 1,200 K (32
+     replicas, 500 steps) and 100 BAOAB steps, card against CPU, from the
+     same normals (1e-4 nm); the aldp ladder through build_trainer and fit
+     at the preset's full DiT3D width on train/val/test sets written by the
+     port's MD (2 epochs x 10 batches of 2,048, one transition 1,200 ->
+     755.95 K filled at 512 chains x 100 steps with the exact trace by D
+     VJPs and 5 MALA steps): finite losses and val/rama, val/tica, val/ic
+     metrics and chirality rates, the rung-1 buffer filled, none of the
+     five kernels launched; a float32 step on the card against the CPU at
+     batch 64 (1e-4), the checkpoint restored bitwise; a training step and
+     a fill step profiled; train_cli experiment=al3 and
+     alp_diffusion_baseline, debug=short, one epoch, no test phase.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
@@ -107,6 +125,7 @@ off for matmuls and convolutions, so float32 stays float32.
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
 --training-only runs phases 1 and 11 only; --tools-only runs phases 1 and
 12 only (eval_cli then restores the DEM trainer's checkpoint);
+--peptides-only runs phases 1 and 13 only;
 --profile adds a torch.profiler breakdown of each timed main path (for the
 K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
@@ -1310,29 +1329,40 @@ def same_state(a, b):
     return a == b
 
 
-def profile_training(tr, n=5):
-    """torch.profiler over ``n`` training steps: device busy share of the
-    wall time and the largest kernels."""
+def profile_steps(label, step, n, top=12):
+    """torch.profiler over ``n`` calls of ``step``: wall and device-busy ms a
+    call, printed with the largest kernels a call. Returns (wall ms, busy
+    ms, kernel rows, the rows' device ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's operator events add nothing to the
+    # device time and multiply the trace's processing (on an H100, 3 aldp
+    # training steps: 33 s with them, 15 s without)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            tr.train_step(0)
+            step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     dev = lambda e: e.self_device_time_total / 1e3
     rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=dev, reverse=True)
-    busy = sum(dev(e) for e in rows)
-    print(f"[profile] training, {n} steps of {tr.cfg.training_batch_size}: wall {wall_ms:.1f} ms "
-          f"(profiled), device busy {busy:.1f} ms = {100 * busy / wall_ms:.1f} %, "
-          f"{sum(e.count for e in rows)} kernels")
-    for e in rows[:12]:
-        print(f"[profile] {dev(e):9.2f} ms  {100 * dev(e) / busy:5.1f} %  x{e.count:<5d} "
-              f"{e.key[:100]}")
+    busy = sum(dev(e) for e in rows) / n
+    print(f"[profile] {label}, {n} calls: {wall_ms:.1f} ms a call (profiled), device busy "
+          f"{busy:.1f} ms = {100 * busy / wall_ms:.1f} %, {sum(e.count for e in rows) // n} "
+          f"kernels a call; {time.perf_counter() - t0:.1f} s with the profile's processing")
+    for e in rows[:top]:
+        print(f"[profile] {dev(e) / n:9.3f} ms a call  {100 * dev(e) / n / busy:5.1f} %  "
+              f"x{e.count // n:<5d} {e.key[:100]}")
+    return wall_ms, busy, rows, dev
+
+
+def profile_training(tr, n=5):
+    """torch.profiler over ``n`` training steps."""
+    return profile_steps(f"training, steps of {tr.cfg.training_batch_size}",
+                         lambda: tr.train_step(0), n)
 
 
 def phase_training(kernels, tmp, profile=False):
@@ -1600,27 +1630,11 @@ def refill_k2_entry(tr, x_flat, launches):
 def profile_dem_steps(tr, n=3):
     """torch.profiler over ``n`` DEM steps: wall and device busy time a step,
     K1's device time a step and its share of each."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            tr.dem_train_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    dev = lambda e: e.self_device_time_total / 1e3
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=dev, reverse=True)
-    busy = sum(dev(e) for e in rows) / n
+    wall_ms, busy, rows, dev = profile_steps("DEM steps", tr.dem_train_step, n, top=8)
     k1 = sum(dev(e) for e in rows if "lj_pairs_kernel" in e.key) / n
     print(f"[phase 12] profile of {n} DEM steps: {wall_ms:.1f} ms a step (profiled), device busy "
           f"{busy:.1f} ms = {100 * busy / wall_ms:.1f} %; K1 {k1:.4f} ms a step = "
           f"{100 * k1 / busy:.3f} % of busy, {100 * k1 / wall_ms:.3f} % of the step")
-    for e in rows[:8]:
-        print(f"[profile] {dev(e) / n:9.3f} ms a step  {100 * dev(e) / n / busy:5.1f} %  "
-              f"x{e.count // n:<5d} {e.key[:100]}")
     return wall_ms
 
 
@@ -1951,6 +1965,350 @@ def phase_tools(kernels, tmp, ckpt=None):
     return rows
 
 
+# ---------------------------------------------------------------- phase 13
+
+TOL_FF = 1e-5  # energies and forces, card against CPU, of the largest: f32 sums in another order
+TOL_FF_COMMITTED = 5e-3  # kcal/mol against aldp_md_T300.npz's energies (pita_tpu: 1.45e-3)
+TOL_MD = 1e-4  # nm after 100 BAOAB steps from the same draws, card against CPU
+
+
+def phase_forcefield():
+    """Phase 13.1: energies and forces of the 800 frames of aldp_md_T300.npz
+    and of the minimized aldp, al3 and al4 under 1e-3 nm noise (2,048 each)
+    on the card against the CPU; the committed MD energies; one
+    energy-and-force call at 2,048 configurations of aldp, timed."""
+    import numpy as np
+    import torch
+
+    from pita_torch.targets import ALPEnergy
+
+    z = np.load(os.path.join(REPO, "aldp_md_T300.npz"))
+    sets = [("aldp_md_T300.npz", "aldp", z["positions"].reshape(-1, 66))]
+    for seed, pep in enumerate(("aldp", "al3", "al4")):
+        x0 = ALPEnergy(pep).initial_structure()
+        rng = np.random.default_rng(seed)
+        sets.append((f"{pep} minimized + 1e-3 nm", pep,
+                     x0[None] + 1e-3 * rng.standard_normal((2048, x0.size))))
+    worst = 0.0
+    for label, pep, x in sets:
+        t = ALPEnergy(pep)
+        xh = torch.as_tensor(x, dtype=torch.float32)
+        e_c, f_c = t.energy_kcal(xh.cuda()), t.log_prob_and_force(xh.cuda())[1]
+        e_h, f_h = t.energy_kcal(xh), t.log_prob_and_force(xh)[1]
+        err = max(rel_err(e_c.cpu(), e_h)[0], rel_err(f_c.cpu(), f_h)[0])
+        worst = max(worst, err)
+        print(f"[phase 13] force field, {label} ({xh.shape[0]} x {t.n_particles} atoms): energy "
+              f"and force, card against CPU, max rel err {err:.2e} (tol {TOL_FF}); energy "
+              f"{float(e_c.min()):.3f} to {float(e_c.max()):.3f} kcal/mol")
+        if not err <= TOL_FF:
+            fail(f"the force field on the card disagrees with the CPU on {label}")
+    t = ALPEnergy("aldp")
+    e = t.energy_kcal(torch.as_tensor(sets[0][2], dtype=torch.float32, device="cuda"))
+    gap = float((e.cpu().double() - torch.as_tensor(z["energies"]).reshape(-1)).abs().max())
+    print(f"[phase 13] aldp_md_T300.npz on the card against its committed energies: max abs "
+          f"gap {gap:.3e} kcal/mol (tol {TOL_FF_COMMITTED}; pita_tpu 1.45e-3)")
+    if not gap <= TOL_FF_COMMITTED:
+        fail("the force field misses the committed MD energies")
+    x = torch.as_tensor(sets[1][2], dtype=torch.float32, device="cuda")
+    ms = cuda_ms(lambda: t.log_prob_and_force(x))
+    print(f"[phase 13] aldp energy and force at {x.shape[0]} configurations: {ms:.3f} ms a call "
+          f"(CUDA events, plain PyTorch as pita_tpu's XLA program; autograd force)")
+    return dict(ff_err=worst, ff_committed_gap=gap, ff_ms_2048=ms)
+
+
+def phase_md(tmp):
+    """Phase 13.2: generate_md_cli on the card (aldp at 1,200 K, 32
+    replicas, 500 steps), then 100 BAOAB steps on the card and on the CPU
+    from the same injected normals."""
+    import numpy as np
+    import torch
+
+    from pita_torch import generate_md_cli
+    from pita_torch.baselines.md import MDConfig, langevin_md
+    from pita_torch.targets import ALPEnergy
+
+    n_steps, R = 500, 32
+    out = os.path.join(tmp, "aldp_md_T1200.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_md_cli.main(["peptide=aldp", "temperature=1200", f"n_steps={n_steps}",
+                          f"n_replicas={R}", "seed=0", f"out={out}"])
+    wall = time.perf_counter() - t0
+    z = np.load(out)
+    ok = (z["positions"].shape == (n_steps // 100, R, 66) and np.isfinite(z["positions"]).all()
+          and np.isfinite(z["energies"]).all())
+    step_ms = 1e3 * wall / n_steps
+    print(f"[phase 13] generate_md_cli peptide=aldp temperature=1200 n_replicas={R} "
+          f"n_steps={n_steps}: {wall:.2f} s = {step_ms:.3f} ms a BAOAB step (with the file); "
+          f"frames {z['positions'].shape}, energies {float(z['energies'].min()):.2f} to "
+          f"{float(z['energies'].max()):.2f} kcal/mol")
+    if not ok:
+        fail("MD on the card gave frames of the wrong shape or non-finite values")
+    t = ALPEnergy("aldp", temperature=1200.0)
+    g = torch.Generator().manual_seed(5)
+    x0 = torch.as_tensor(t.initial_structure(), dtype=torch.float32)[None].repeat(R, 1)
+    x0 = x0 + 1e-3 * torch.randn(x0.shape, generator=g)
+    cfg = MDConfig(temperature=1200.0, n_steps=100, report_interval=10)
+    draws = [torch.randn((R, 66), generator=g) for _ in range(cfg.n_steps + 1)]
+
+    def run(dev):
+        it = iter(d.to(dev) for d in draws)
+        return langevin_md(t, x0.to(dev), cfg, normal=lambda shape: next(it))
+
+    gap = float((run("cuda").positions.cpu() - run("cpu").positions).abs().max())
+    print(f"[phase 13] 100 BAOAB steps at 1,200 K from the same draws, card against CPU: max "
+          f"position gap {gap:.3e} nm (tol {TOL_MD})")
+    if not gap <= TOL_MD:
+        fail("MD on the card departs from the same steps on the CPU")
+    return dict(md_ms_per_step=step_ms, md_gap_nm=gap)
+
+
+def write_md_sets(peptide, temps, data_dir, n_steps, n_replicas, seed=0):
+    """The cached train, val and test sets of ``peptide`` at each temperature
+    by the port's MD on the card: the warmup half of the frames dropped,
+    half the replicas to train, a quarter each to val and test."""
+    import numpy as np
+
+    from pita_torch.baselines.md import generate_md_dataset
+    from pita_torch.targets import ALPEnergy
+
+    os.makedirs(data_dir, exist_ok=True)
+    for i, T in enumerate(temps):
+        t = ALPEnergy(peptide, temperature=T)
+        out = os.path.join(data_dir, f"md_{peptide}_{T:.2f}.npz")
+        generate_md_dataset(t, out, n_steps=n_steps, n_replicas=n_replicas, seed=seed + i,
+                            device="cuda")
+        frames = np.load(out)["positions"]
+        frames = frames[frames.shape[0] // 2:]
+        R = frames.shape[1]
+        for which, part in (("train", frames[:, :R // 2]), ("val", frames[:, R // 2:3 * R // 4]),
+                            ("test", frames[:, 3 * R // 4:])):
+            np.save(os.path.join(data_dir, f"{peptide}_temp_{T:.2f}_{which}.npy"),
+                    part.reshape(-1, t.dim).astype(np.float32))
+
+
+def aldp_train_cfg(tmp, data_dir, **kw):
+    """The aldp preset at its full width (DiT3D hidden 128, cond 128, 8
+    heads, 6 blocks, bf16 block stack), cut in count only: 2 epochs of 10
+    batches of 2,048, then one rung transition 1,200 -> 755.95 K filled at
+    512 chains x 100 steps (the preset's exact mode: D VJPs for the DiT;
+    resampling to step 80 of 100 as 800 of 1,000) with its 5 adaptive MALA
+    steps and no escalated retry."""
+    from pita_torch.configs import compose
+
+    return compose("aldp", overrides={
+        "out_dir": tmp, "energy.data_dir": data_dir,
+        "trainer.n_train_batches_per_epoch": 10,
+        "trainer.num_epochs_per_temp": (2, 200, 200),
+        "trainer.num_temp_annealed_samples": 512,
+        "trainer.transition_fill_max_retries": 0,
+        "integrator.num_integration_steps": 100,
+        "integrator.end_resampling_step": 80,
+        "logger": ("csv",), **kw})
+
+
+def phase_peptide_ladder(kernels, tmp, data_dir):
+    """Phase 13.3: the aldp ladder through build_trainer and fit on the card
+    (aldp_train_cfg); the metrics, the filled rung-1 buffer, no kernel
+    launched; a float32 training step on the card against the CPU; a fill
+    step timed and profiled; a checkpoint round trip."""
+    import torch
+
+    from pita_torch.configs import build_trainer
+    from pita_torch.io import checkpoint
+    from pita_torch.ops.divergence import exact_divergence
+    from pita_torch.sampler import integrate_sde
+    from pita_torch.train.losses import LossDraws
+    from pita_torch.train.trainer import StepDraws
+
+    cfg = aldp_train_cfg(tmp, data_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_md_sets("aldp", cfg.trainer.temperatures[:2], data_dir, n_steps=800, n_replicas=256)
+    t_sets = time.perf_counter() - t0
+    tr = build_trainer(cfg, device="cuda")
+    net = tr.score_net
+    print(f"[phase 13] aldp: N={tr.n_particles}, DiT3D hidden {cfg.net['hidden_size']}, cond "
+          f"{cfg.net['cond_dim']}, {cfg.net['n_heads']} heads, {len(net.blocks)} blocks, "
+          f"{net.compute_dtype}, {sum(p.numel() for p in net.parameters())} weights a net; "
+          f"batch {cfg.trainer.training_batch_size}; train/val/test sets at "
+          f"{cfg.trainer.temperatures[:2]} K by MD (256 replicas x 800 steps each) in "
+          f"{t_sets:.2f} s")
+
+    times = {"train": [], "evaluate": [], "hook": []}
+    losses = []
+
+    def timed(name, fn, keep=None):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            if keep is not None:
+                keep.append(out)
+            return out
+        return wrapped
+
+    tr.train_one_epoch = timed("train", tr.train_one_epoch, losses)
+    tr.evaluate = timed("evaluate", tr.evaluate)
+    for target in tr.targets:
+        target.log_on_epoch_end = timed("hook", target.log_on_epoch_end)
+    ckpt = os.path.join(tmp, "ckpt", "aldp.pt")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    tr.fit(max_epochs=2, ckpt_path=ckpt)
+    t_fit = time.perf_counter() - t0
+    counts = {f.__name__: f.launches for f in kernels}
+    m = tr.metrics_history[-1]
+    n_steps = 2 * cfg.trainer.n_train_batches_per_epoch
+    step_ms = 1e3 * sum(times["train"]) / n_steps
+    t_hook = sum(times["hook"])
+    t_fill = sum(times["evaluate"]) - t_hook
+    n_fill = 2 * cfg.integrator.num_integration_steps
+    buf1 = int(tr.buffers.size[1])
+    print(f"[phase 13] fit, 2 epochs x {cfg.trainer.n_train_batches_per_epoch} steps and the "
+          f"transition fill: {t_fit:.2f} s; training {step_ms:.1f} ms a step (the first epoch "
+          f"{1e3 * times['train'][0] / (n_steps // 2):.1f}); fill {t_fill:.2f} s (512 chains x "
+          f"100 steps and the 512-chain pass without resampling, {1e3 * t_fill / n_fill:.1f} ms "
+          f"a step with MALA and the energies); eval hook {t_hook:.2f} s; rung-1 buffer {buf1} "
+          f"rows; kernel launches {counts}")
+    print("[phase 13] losses by epoch " + "; ".join(
+        ", ".join(f"{k} {v:.4g}" for k, v in e.items()) for e in losses))
+    print("[phase 13] val metrics " + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    if not all(math.isfinite(v) for e in losses for v in e.values()):
+        fail("a peptide training loss is not finite")
+    if any(counts.values()):
+        fail("the peptide path launched one of the port's kernels")
+    for group in ("val/rama/resampled/", "val/rama/not_resampled/", "val/tica/", "val/ic/"):
+        vals = [v for k, v in m.items() if k.startswith(group)]
+        if not vals or not all(math.isfinite(v) for v in vals):
+            fail(f"the peptide evaluation gave no or non-finite {group}* metrics")
+    for k in ("val/correct_symmetry_rate", "val/uncorrectable_symmetry_rate"):
+        if not math.isfinite(m.get(k, math.nan)):
+            fail(f"the peptide evaluation gave no {k}")
+    if buf1 == 0 or not bool(torch.isfinite(tr.buffers.energy[1, :buf1]).all()):
+        fail("the fill left the rung-1 buffer empty or non-finite")
+
+    # the busy share of 3 training steps, then a fill step timed and profiled
+    wall_t, busy_t, _, _ = profile_steps("aldp training, steps of 2048", lambda: tr.train_step(0), 3)
+    nets = tr._eval_wrappers()
+    anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
+    x1 = tr._prior(1.0).sample(512, generator=tr.generator, device="cuda")
+    fill_step = lambda n: integrate_sde(
+        x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
+        cfg.integrator.replace(num_integration_steps=n, end_resampling_step=n,
+                               post_mcmc_steps=0), seed=2, device="cuda")
+    fill_step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fill_step(5)
+    torch.cuda.synchronize()
+    fill_step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    wall_f, busy_f, _, _ = profile_steps("aldp fill step, 512 chains, exact trace by 66 VJPs",
+                                         lambda: fill_step(1), 1)
+    # the exact trace alone (compute_sde_terms' call): D = 66 VJPs, 16 rows a pass
+    score_fn = lambda tq, xq: nets[0].score(tr.noise_schedule.h(tq), xq, 1.0)
+    t_mid = torch.full((x1.shape[0],), 0.5, device="cuda")
+    trace_ms = cuda_ms(lambda: exact_divergence(score_fn, t_mid, x1), reps=3, warmup=1)
+    print(f"[phase 13] one fill step, 512 chains (5 steps timed): {fill_step_ms:.1f} ms; the "
+          f"exact trace alone (66 VJPs in 5 passes of up to 8,192 rows) {trace_ms:.1f} ms = "
+          f"{100 * trace_ms / fill_step_ms:.1f} % of it")
+
+    # one float32 step on the card against the same step on the CPU
+    cfg32 = aldp_train_cfg(tmp, data_dir, **{"net.compute_dtype": "float32"})
+    state = tr.state_dict()
+    state.pop("generator")
+    g32 = build_trainer(cfg32, device="cuda")
+    g32.load_state_dict(state)
+    h32 = build_trainer(cfg32, device="cpu")
+    h32.load_state_dict(state)
+    d = g32.draw_step(0)
+    nb = STEP_CPU_BATCH
+    d = StepDraws(d.idx[:nb], d.rot_normal[:nb], None,
+                  LossDraws(d.loss.ln_sigma_draw[:nb], d.loss.noise[:nb]))
+    hd = StepDraws(*(None if v is None else v.cpu() for v in d[:3]),
+                   LossDraws(*(v.cpu() for v in d.loss[:2])))
+    aux_c, gn_c = g32.train_step(0, draws=d)
+    t0 = time.perf_counter()
+    aux_h, gn_h = h32.train_step(0, draws=hd)
+    t_cpu = time.perf_counter() - t0
+    worst = max(abs(float(aux_c[k]) - float(aux_h[k])) / max(abs(float(aux_h[k])), 1e-30)
+                for k in aux_h)
+    g_rel = abs(float(gn_c) - float(gn_h)) / float(gn_h)
+    print(f"[phase 13] one float32 step at batch {nb}, card against CPU ({t_cpu:.2f} s there): "
+          f"losses max rel err {worst:.2e}, global gradient norm {float(gn_c):.6g} / "
+          f"{float(gn_h):.6g} rel err {g_rel:.2e} (tol {TOL_STEP}); "
+          + ", ".join(f"{k} {float(aux_h[k]):.4g}" for k in aux_h))
+    if not (worst <= TOL_STEP and g_rel <= TOL_STEP):
+        fail("an aldp training step on the card disagrees with the same step on the CPU")
+    del g32, h32
+
+    # the checkpoint fit saved, restored into a fresh trainer
+    fresh = build_trainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    checkpoint.restore_checkpoint(fresh, ckpt)
+    t_load = time.perf_counter() - t0
+    saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+    if not same_state(fresh.state_dict(), saved):
+        fail("a restored aldp checkpoint differs from the saved state")
+    print(f"[phase 13] checkpoint {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB saved by fit, "
+          f"restored in {t_load:.2f} s into a fresh trainer, every tensor equal")
+    return dict(train_step_ms=step_ms, train_busy_pct=100 * busy_t / wall_t, fill_s=t_fill,
+        fill_step_ms=fill_step_ms, trace_ms=trace_ms,
+        fill_step_busy_pct=100 * busy_f / wall_f, eval_hook_s=t_hook, sets_s=t_sets,
+        buffer1_rows=buf1, kernel_launches=sum(counts.values()),
+        step_cpu_rel_err=max(worst, g_rel))
+
+
+def phase_peptide_clis(tmp, data_dir):
+    """Phase 13.4: train_cli experiment=al3 and alp_diffusion_baseline,
+    debug=short, one epoch, no test phase, on sets the port's MD writes."""
+    import csv
+
+    from pita_torch import train_cli
+
+    t0 = time.perf_counter()
+    write_md_sets("al3", (1200.0,), data_dir, n_steps=300, n_replicas=64)
+    write_md_sets("aldp", (300.0,), data_dir, n_steps=300, n_replicas=64)
+    print(f"[phase 13] al3 at 1,200 K and aldp at 300 K sets by MD (64 replicas x 300 steps): "
+          f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for exp in ("al3", "alp_diffusion_baseline"):
+        t0 = time.perf_counter()
+        train_cli.main([f"experiment={exp}", "debug=short", f"out_dir={tmp}",
+                        f"energy.data_dir={data_dir}", "trainer.max_epochs=1", "test=false"])
+        out[exp] = time.perf_counter() - t0
+        with open(os.path.join(tmp, exp, "metrics.csv"), newline="") as f:
+            cols = [c for c in next(csv.reader(f)) if c.startswith("val/rama/")]
+        print(f"[phase 13] train_cli experiment={exp} debug=short trainer.max_epochs=1 "
+              f"test=false: {out[exp]:.2f} s, {len(cols)} val/rama columns")
+        if not cols:
+            fail(f"train_cli experiment={exp} logged no peptide metrics")
+    return out
+
+
+def phase_peptides(kernels, tmp):
+    """Phase 13: the alanine-peptide path on the card."""
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "peptide_data")
+    out, parts = {}, {}
+    for name, run in (
+            ("force field", phase_forcefield),
+            ("MD", lambda: phase_md(tmp)),
+            ("aldp ladder", lambda: phase_peptide_ladder(kernels, os.path.join(tmp, "peptide"),
+                                                         data_dir)),
+            ("CLIs", lambda: {f"cli_{k}_s": v for k, v in phase_peptide_clis(
+                os.path.join(tmp, "peptide_cli"), data_dir).items()})):
+        t1 = time.perf_counter()
+        out.update(run())
+        parts[name] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[phase 13] the peptide path: {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main():
     import torch
 
@@ -1995,6 +2353,10 @@ def main():
     if "--tools-only" in sys.argv[1:]:  # quick check of the training tools
         with tempfile.TemporaryDirectory() as tmp:
             phase_tools(kernels, tmp)
+        return 0
+    if "--peptides-only" in sys.argv[1:]:  # quick check of the peptide path
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_peptides(kernels, tmp)
         return 0
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
@@ -2105,6 +2467,8 @@ def main():
         training_rows, ckpt = phase_training(kernels, tmp, profile)
         # phase 12: DEM pretraining, HMC, the gated protocol, the entry points
         tools_rows = phase_tools(kernels, tmp, ckpt)
+        # phase 13: the alanine-peptide path (force field, MD, the aldp ladder)
+        peptide = phase_peptides(kernels, tmp)
 
     src = "pita_torch/csrc/"
     line = {"kernels": [
@@ -2147,7 +2511,7 @@ def main():
              launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
         *training_rows,
         *tools_rows,
-    ]}
+    ], "peptide": peptide}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

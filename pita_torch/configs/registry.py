@@ -1,14 +1,16 @@
 """Experiment presets and dotted-override composition.
 
-Counterpart of ``pita_tpu/configs/registry.py:25-111,272-500`` for the LJ
-experiments: ``ExperimentConfig``, the ``lj13`` and ``lj55`` presets, the
+Counterpart of ``pita_tpu/configs/registry.py`` for the LJ and the
+alanine-peptide experiments: ``ExperimentConfig``, the ``lj13``, ``lj55``,
+``aldp``, ``al3``, ``al4`` and ``alp_diffusion_baseline`` presets, the
 ``short`` and ``score_only`` debug overlays, ``compose`` (preset, debug
 overlay, YAML overlay, overrides), ``parse_overrides`` and
 ``build_trainer``. The presets are copies of ``pita_tpu``'s (this package
-imports nothing of it), without the TPU-only integrator keys
-(``segment_size``). ``pita_tpu``'s ``integrator.pallas_divergence`` is
+imports nothing of it), without the TPU-only integrator key
+``segment_size``. ``pita_tpu``'s ``integrator.pallas_divergence`` is
 accepted as the port's ``integrator.divergence_tangent_kernel`` (the K4
-route). The other presets (gmm, dw4, the peptides) are not ported.
+route). The gmm and dw4 presets and the ``torchmd_et`` net are not ported
+(ROADMAP.md, Queue 1).
 """
 
 import ast
@@ -93,7 +95,100 @@ def _lj55() -> dict:
     return cfg
 
 
-EXPERIMENTS = {"lj13": _lj13, "lj55": _lj55}
+def _aldp() -> dict:
+    """configs/experiment/aldp.yaml, alanine dipeptide (registry.py:168-203)."""
+    return dict(
+        name="aldp",
+        tags=("ALDP",),
+        energy=dict(kind="alp", peptide="aldp"),
+        net=dict(kind="dit3d", hidden_size=128, cond_dim=128, n_heads=8, n_blocks=6),
+        noise_schedule=dict(kind="elucidating", sigma_min=0.01, sigma_max=80.0, rho=7.0),
+        annealing_schedule=dict(kind="constant"),
+        trainer=dict(
+            temperatures=(1200.0, 755.95, 555.52, 300.0),
+            num_epochs_per_temp=(200, 200, 200),
+            training_batch_size=2048,
+            num_temp_annealed_samples=50000,
+            train_on_all_temps=True,
+            seed=12345,
+            transition_min_fill_ess=0.02,
+            transition_fill_max_retries=2,
+            transition_fill_extra_mcmc=30,
+        ),
+        loss=dict(w_target_score=0.01),
+        integrator=dict(
+            num_integration_steps=1000,
+            end_resampling_step=800,
+            resampling_interval=1,
+            resample_at_end=False,
+            post_mcmc_steps=5,
+            adaptive_mcmc=True,
+            dt_negative_time=1e-13,
+        ),
+    )
+
+
+def _al3() -> dict:
+    """configs/experiment/al3.yaml, alanine tripeptide, 32 atoms (registry.py:206-225)."""
+    cfg = _aldp()
+    cfg.update(name="al3", tags=("AL3",))
+    cfg["energy"] = dict(kind="alp", peptide="al3")
+    cfg["noise_schedule"] = dict(kind="elucidating", sigma_min=0.01, sigma_max=80.0, rho=7.0)
+    cfg["trainer"] = dict(
+        cfg["trainer"],
+        temperatures=(1200.0, 755.95, 555.52, 408.24, 300.0),
+        num_epochs_per_temp=(200, 200, 200, 200),
+        training_batch_size=2048,
+        num_temp_annealed_samples=30000,
+        temps_to_anneal_test=((600.0, 600.0),),
+    )
+    cfg["integrator"] = dict(cfg["integrator"], end_resampling_step=800)
+    return cfg
+
+
+def _al4() -> dict:
+    """AL4 tetrapeptide, 42 atoms: the al3 ladder, one size up (registry.py:228-233)."""
+    cfg = _al3()
+    cfg.update(name="al4", tags=("AL4",))
+    cfg["energy"] = dict(kind="alp", peptide="al4")
+    return cfg
+
+
+def _alp_diffusion_baseline() -> dict:
+    """configs/experiment/alp_diffusion_baseline.yaml: plain score-only
+    diffusion at 300 K, no weights, no debiasing, no annealing
+    (registry.py:236-262)."""
+    cfg = _aldp()
+    cfg.update(name="alp_diffusion_baseline", tags=("ALDP", "diffusion_baseline"))
+    cfg["noise_schedule"] = dict(kind="elucidating", sigma_min=0.005, sigma_max=80.0, rho=7.0)
+    cfg["trainer"] = dict(
+        cfg["trainer"],
+        temperatures=(300.0, 300.0),
+        num_epochs_per_temp=(400,),
+        should_mean_free=False,
+        temps_to_anneal_test=((300.0, 300.0),),
+    )
+    cfg["loss"] = dict(w_score=1.0, w_energy_score=0.0, w_energy_matching=0.0,
+                       w_target_score=0.0, w_dem_energy=0.0, w_dU_dt_regularization=0.0)
+    cfg["integrator"] = dict(
+        cfg["integrator"],
+        end_resampling_step=1000,
+        resampling_interval=-1,
+        should_mean_free=False,
+        debias_inference=False,
+        post_mcmc_steps=0,
+    )
+    return cfg
+
+
+EXPERIMENTS = {
+    "lj13": _lj13,
+    "lj55": _lj55,
+    "aldp": _aldp,
+    "al3": _al3,
+    "al4": _al4,
+    "alp_diffusion_baseline": _alp_diffusion_baseline,
+}
 
 # configs/debug/*.yaml (registry.py:276-295)
 DEBUG_OVERLAYS = {
@@ -196,23 +291,35 @@ def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None
 def _build_target(spec: dict, temperature: float):
     spec = dict(spec)
     kind = spec.pop("kind")
-    if kind != "lj":
-        raise ValueError(f"energy kind {kind!r} is not ported")
-    from pita_torch.targets import LennardJones
+    if kind == "lj":
+        from pita_torch.targets import LennardJones
 
-    return LennardJones(temperature=temperature, **spec)
+        return LennardJones(temperature=temperature, **spec)
+    if kind == "alp":
+        from pita_torch.targets import ALPEnergy
+
+        return ALPEnergy(temperature=temperature, **spec)
+    raise ValueError(f"energy kind {kind!r} is not ported")
 
 
 def _build_backbone_factory(spec: dict, target):
     spec = dict(spec)
     kind = spec.pop("kind")
-    if kind != "egnn":
-        raise ValueError(f"net kind {kind!r} is not ported")
-    from pita_torch.nets import EGNNBackbone
+    if kind == "egnn":
+        from pita_torch.nets import EGNNBackbone
 
-    n_sd = spec.pop("n_spatial_dim", target.n_spatial_dim)
-    return lambda: EGNNBackbone(n_particles=target.n_particles, n_spatial_dim=n_sd,
-                                route="autograd", **spec)
+        n_sd = spec.pop("n_spatial_dim", target.n_spatial_dim)
+        return lambda: EGNNBackbone(n_particles=target.n_particles, n_spatial_dim=n_sd,
+                                    route="autograd", **spec)
+    if kind == "dit3d":
+        from pita_torch.nets import DiT3DBackbone
+
+        return lambda: DiT3DBackbone(n_particles=target.n_particles,
+                                     n_spatial_dim=target.n_spatial_dim, **spec)
+    if kind == "torchmd_et":
+        raise ValueError("net kind 'torchmd_et' is not ported yet (ROADMAP.md, Queue 1: "
+                         "TorchMD-ET with atom_features)")
+    raise ValueError(f"net kind {kind!r} is not ported")
 
 
 def _build_noise_schedule(spec: dict):

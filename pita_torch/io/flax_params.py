@@ -7,11 +7,13 @@ whose payload is itself msgpack of ``(shape, dtype name, C-order bytes)``
 exactly that subset into nested dicts of numpy arrays and raises on any other
 msgpack type.
 
-``egnn_params_from_tree`` is the weight bridge: it mirrors
+``egnn_params_from_tree`` is the weight bridge of the EGNN: it mirrors
 ``pita_tpu/nets/egnn_fast.py:69-100 extract_params`` (including the Dense
 renumbering when ``attention=False``) and returns the state dict of
-``pita_torch.nets.egnn.EGNNBackbone``. ``trainer_state_from_tree`` extends
-it to a whole ``pita_tpu`` trainer state (the tree that
+``pita_torch.nets.egnn.EGNNBackbone``. ``dit_params_from_tree`` does the
+same for ``pita_tpu/nets/dit.py``'s DiT3D and returns the state dict of
+``pita_torch.nets.dit.DiT3DBackbone``. ``trainer_state_from_tree`` extends
+them to a whole ``pita_tpu`` trainer state (the tree that
 ``pita_tpu/io/checkpoint.py:_state_pytree`` builds, with numpy leaves) and
 returns ``pita_torch.train.trainer.EnergyTempTrainer.state_dict``'s layout.
 """
@@ -156,6 +158,50 @@ def egnn_params_from_tree(tree, n_layers: int, attention: bool = True) -> dict:
     return sd
 
 
+def dit_params_from_tree(tree, n_blocks: int) -> dict:
+    """The DiT3DBackbone flax tree as the port's state dict (float32
+    tensors). A flax kernel (in, out) becomes a torch weight (out, in); a
+    LayerNorm's ``scale`` becomes its ``weight``."""
+    p = tree["params"]
+    sd = {}
+
+    def dense(name, q, bias=True):
+        sd[f"{name}.weight"] = torch.as_tensor(np.array(q["kernel"], dtype=np.float32).T.copy())
+        if bias:
+            sd[f"{name}.bias"] = torch.as_tensor(np.array(q["bias"], dtype=np.float32))
+
+    def norm(name, q):
+        sd[f"{name}.weight"] = torch.as_tensor(np.array(q["scale"], dtype=np.float32))
+
+    dense("embed", p["Dense_0"])
+    for emb in ("sigma_map", "sigma_map_temp"):
+        if emb in p:
+            dense(f"{emb}.mlp0", p[emb]["Dense_0"])
+            dense(f"{emb}.mlp1", p[emb]["Dense_1"])
+    for i in range(n_blocks):
+        q, b = p[f"DDiTBlock_{i}"], f"blocks.{i}"
+        dense(f"{b}.ada", q["Dense_0"])
+        norm(f"{b}.norm1", q["LayerNorm_0"])
+        dense(f"{b}.qkv", q["Dense_1"], bias=False)
+        dense(f"{b}.attn_out", q["Dense_2"], bias=False)
+        norm(f"{b}.norm2", q["LayerNorm_1"])
+        dense(f"{b}.mlp_up", q["Dense_3"])
+        dense(f"{b}.mlp_down", q["Dense_4"])
+    dense("final_ada", p["Dense_1"])
+    norm("final_norm", p["LayerNorm_0"])
+    dense("final_out", p["Dense_2"])
+    return sd
+
+
+def net_params_from_tree(tree, n_layers: int, attention: bool = True) -> dict:
+    """A backbone's flax tree as the port's state dict: the DiT3D's (with
+    ``n_layers`` blocks) when the tree has its ``sigma_map``, else the
+    EGNN's."""
+    if "sigma_map" in tree["params"]:
+        return dit_params_from_tree(tree, n_layers)
+    return egnn_params_from_tree(tree, n_layers, attention)
+
+
 def load_egnn_params(blob, n_layers: int, attention: bool = True) -> dict:
     """Bytes (or a uint8 array, as stored in ``bench_lj55.npz``) → state dict."""
     data = blob.tobytes() if isinstance(blob, np.ndarray) else bytes(blob)
@@ -179,8 +225,10 @@ def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dic
     trainer state: the score and energy weights, their EMA weights and
     ``num_updates``, Adam's ``count``, ``mu`` and ``nu`` (over the score and
     the energy tree, as optax holds them), the stacked buffers and the epoch.
-    The generator's state is not carried over (JAX keys are not torch's)."""
-    sd = lambda tree: egnn_params_from_tree(tree, n_layers, attention)
+    ``n_layers`` is the EGNN's layers or the DiT3D's blocks
+    (``net_params_from_tree``). The generator's state is not carried over
+    (JAX keys are not torch's)."""
+    sd = lambda tree: net_params_from_tree(tree, n_layers, attention)
     adam = _adam_node(state["opt_state"])
     if adam is None:
         raise ValueError("no Adam state (mu, nu) in the optimizer state")
@@ -207,6 +255,6 @@ def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dic
 
 
 __all__ = [
-    "W_FIELDS", "egnn_params_from_tree", "load_egnn_params", "msgpack_restore",
-    "trainer_state_from_tree",
+    "W_FIELDS", "dit_params_from_tree", "egnn_params_from_tree", "load_egnn_params",
+    "msgpack_restore", "net_params_from_tree", "trainer_state_from_tree",
 ]

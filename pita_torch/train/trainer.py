@@ -3,9 +3,10 @@
 Counterpart of ``pita_tpu/train/trainer.py`` (``fill_with_quality_floor``
 :82, ``TrainerConfig`` :163, ``EnergyTempTrainer`` :253):
 
-- twin score and energy EGNNs on the ``"autograd"`` route (the energy net
-  starts as a copy of the score net, :305-307) with EMA shadows on the
-  ``"kernels"`` route, which the sampler runs;
+- twin score and energy backbones on the ``"autograd"`` route (the energy
+  net starts as a copy of the score net, :305-307) with EMA shadows on the
+  ``"kernels"`` route, which the sampler runs: the EGNN, or the DiT3D of the
+  peptide presets, whose one route serves both;
 - a per-rung replay buffer, seeded from the rung-0 train set or the prior;
 - the ladder: the active rung from the epoch by the cumulative
   ``num_epochs_per_temp``;
@@ -647,8 +648,8 @@ class EnergyTempTrainer:
 
     def _make_eval_plots(self, res, res_nores, target, samples, energies, data):
         """The reference's evaluation figures under out_dir/plots/epoch_<n>
-        (trainer.py:1066-1092); needs matplotlib. A target's own figures
-        (GMM contours, Ramachandran plots) belong in its log_on_epoch_end."""
+        (trainer.py:1066-1092), with the Ramachandran plot of a target that
+        has dihedrals; needs matplotlib."""
         from pita_torch.io import plotting as P
 
         pdir = os.path.join(self.out_dir, "plots", f"epoch_{self.epoch}")
@@ -657,6 +658,9 @@ class EnergyTempTrainer:
                                      not_resampled_energies=target.log_prob(res_nores.samples))
             if self.is_molecule:
                 P.plot_interatomic_distances(target, samples, data, pdir)
+        if hasattr(target, "dihedrals"):
+            phi, psi = target.dihedrals(samples)
+            P.plot_ramachandran(phi, psi, pdir, temperature=target.temperature)
         P.plot_logweights(res_nores.logweights, pdir)
         P.plot_num_unique(res.num_unique, pdir)
         P.plot_acceptance(res.acceptance_rates, pdir)
