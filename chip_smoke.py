@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LJ55 sampling and training paths and its alanine-peptide
-path on one NVIDIA GPU (H100).
+"""Drive the PyTorch port's LJ55 sampling and training paths, its alanine-peptide
+path and its GMM, DW4 and other single-GPU presets on one NVIDIA GPU (H100).
 
 Usage, from the root of the repository on a machine with a CUDA card:
 
@@ -117,6 +117,24 @@ Phases, each printing lines, each failing the run on disagreement:
      batch 64 (1e-4), the checkpoint restored bitwise; a training step and
      a fill step profiled; train_cli experiment=al3 and
      alp_diffusion_baseline, debug=short, one epoch, no test phase.
+ 14. the GMM oracle and the presets, modes and nets of pita_tpu that run no
+     kernel (pita_tpu computes them in XLA; no kernel may launch but K2/K3
+     in the hutchpp run and K1 in the TorchMD-ET run's energies): the five
+     runs of tests/test_annealing_oracle.py (GMM-40 annealed to the exact
+     p², 2,048 chains x 1,000 steps; exact, hutchinson + 30 MALA,
+     hutchinson with ESS 0.5, hutch_ess_k10, hutchpp) held to that test's
+     bounds against exact draws of p², then hutch_ess_k10 over 8 more seeds
+     with the count of far-off samples; on the LJ55 bench pair Hutch++ at
+     rank 165 against the edge-operator trace, a hutchpp run (rank 16, 256
+     chains x 20 steps; K2 and K3 launch, K4 and K5 not), the score-free
+     exact Laplacian card against CPU and a 64 x 8 score-free run, a
+     pinned run through the final resample; train_cli with no experiment
+     (gmm: 2 epochs x 10 batches of 512, a transition filled at 2,048
+     chains x 1,000 steps) and experiment=dw4 (MALA sets, a fill at 512 x
+     1,000 through the 2-D edge operators), a step of each card against
+     CPU; TorchMD-ET's forward at 2,048 LJ55 configurations and train_cli
+     experiment=lj13 net.kind=torchmd_et; cnf_nll on a Gaussian against the
+     closed form and on the GMM oracle card against CPU.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
@@ -125,7 +143,10 @@ off for matmuls and convolutions, so float32 stays float32.
 Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
 --training-only runs phases 1 and 11 only; --tools-only runs phases 1 and
 12 only (eval_cli then restores the DEM trainer's checkpoint);
---peptides-only runs phases 1 and 13 only;
+--peptides-only runs phases 1 and 13 only; --oracle-only runs phases 1
+and 14 only; --outlier-seed S follows phase 5's quality run at seed S
+through the final resample and MALA, K1 against the plain float64 energy at
+every state, and stops;
 --profile adds a torch.profiler breakdown of each timed main path (for the
 K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
@@ -1083,6 +1104,120 @@ def quality(wl, data, seed, make_cfg=None, phase=5, label="hutch_ess_k10"):
           f"lowest log-prob {e.min():.1f} (ground truth {e_data.min():.1f}), "
           f"{int((e < e_data.min()).sum())} samples below the ground truth's lowest")
     return w2_gt, spread, (w2_gt < gt_bound, w2_ex < 0.5 * spread)
+
+
+def trace_outlier(wl, data, seed, n_low=5):
+    """Phase 5's quality run at one seed, split at the end of the SDE, so that
+    the final resample and the 30 MALA steps can be followed chain by chain
+    with the same draws: the log-prob by K1 and by the plain ``lj_energy`` in
+    float64 at the end of the SDE, after the final resample, after each MALA
+    step and at each accepted proposal, for the lowest final sample and the
+    ``n_low`` lowest. Checks that the split run ends where the whole one
+    does. Returns the largest relative gap between K1 and the plain energy
+    over every configuration it saw."""
+    import numpy as np
+    import torch
+
+    from pita_torch.ops.lj import lj_energy
+    from pita_torch.ops.resampling import systematic_resample
+    from pita_torch.sampler import integrate_sde
+    from pita_torch.sampler.integrator import GeneratorDraws
+    from pita_torch.utils.mean_free import remove_mean
+
+    tgt = wl.target
+    N, T = tgt.n_particles, tgt.temperature
+    nq, sq = 512, 400
+    gen = torch.Generator("cuda").manual_seed(100 + seed)
+    x1q = torch.randn(nq, 165, generator=gen, device="cuda") * wl.prior_scale
+    cfg_q = hutch_cfg(num_integration_steps=sq, end_resampling_step=int(sq * 0.9),
+                      resample_at_end=True, post_mcmc_steps=30, adaptive_mcmc=True,
+                      dt_negative_time=5e-5)
+    whole = integrate_sde(x1q, wl.score, wl.energy, wl.noise, wl.anneal, tgt, 1.0, cfg_q,
+                          seed=seed, device="cuda")
+    draws = GeneratorDraws(torch.Generator("cuda").manual_seed(seed))
+    sde = integrate_sde(x1q, wl.score, wl.energy, wl.noise, wl.anneal, tgt, 1.0,
+                        cfg_q.replace(resample_at_end=False, post_mcmc_steps=0), draws=draws,
+                        device="cuda")
+
+    def both(x):  # (K1 log-prob, plain float64 log-prob), on the host
+        lp_k1, _ = tgt.log_prob_and_force(x)
+        lp64 = -lj_energy(x.double(), N, tgt.eps, tgt.rm, tgt._osc, tgt.energy_factor,
+                          tgt.spline) / T
+        return lp_k1.double().cpu().numpy(), lp64.cpu().numpy()
+
+    points = {}
+    x = sde.samples
+    points["sde_end"] = both(x)
+    times = torch.linspace(1.0, 0.0, sq + 1, device="cuda")[:-1]
+    t_end = times[min(cfg_q.end_resampling_step, sq - 1)].expand(nq)
+    with torch.no_grad():
+        model_energy = wl.energy.energy(wl.noise.h(t_end), x, 1.0)
+    logq0 = -model_energy * wl.anneal.gamma(t_end)
+    a_end = tgt.log_prob(x) - logq0 + sde.logweights[-1]
+    a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))
+    choice = systematic_resample(a_end, draws.end_u0())
+    x = x[choice]
+    points["resampled"] = both(x)
+
+    # integrator.mala, step for step, with each state's two log-probs kept
+    lp, force = tgt.log_prob_and_force(x)
+    valid = torch.isfinite(lp)
+    n_valid = torch.clamp(valid.sum(), min=1)
+    dt = torch.full((), cfg_q.dt_negative_time, device="cuda")
+    accepted = []  # per step: (chain indices, K1 and plain log-prob of the proposals)
+    for k in range(cfg_q.post_mcmc_steps):
+        noise = draws.mala_noise(k, x.shape)
+        u = draws.mala_uniform(k, lp.shape)
+        prop = x + 0.5 * dt * force + torch.sqrt(dt) * noise
+        lp_prop, force_prop = tgt.log_prob_and_force(prop)
+        log_q_fwd = -((prop - (x + 0.5 * dt * force)) ** 2).sum(-1) / (2 * dt)
+        log_q_bwd = -((x - (prop + 0.5 * dt * force_prop)) ** 2).sum(-1) / (2 * dt)
+        accept = (torch.log(u) < (lp_prop - lp) + (log_q_bwd - log_q_fwd)) & valid
+        acc_rate = accept.sum() / n_valid
+        idx = accept.nonzero()[:, 0]
+        accepted.append((idx.cpu().numpy(), *both(prop[idx])))
+        x_new = torch.where(accept[:, None], prop, x)
+        x = torch.where(valid[:, None], remove_mean(x_new, N, 3), x_new)
+        lp = torch.where(accept, lp_prop, lp)
+        force = torch.where(accept[:, None], force_prop, force)
+        dt = torch.where(acc_rate > 0.55, dt * 1.1, dt / 1.1)
+        points[f"mala_{k}"] = both(x)
+    same = float((x - whole.samples).abs().max())
+    print(f"[outlier] seed {seed}: the split run ends {same:.3e} from the whole run "
+          f"(max |x| difference)")
+
+    # the tolerance's measure: max |K1 - plain| / max |plain| over each batch
+    rel = lambda a, b: np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+    worst = max(float(rel(*v)) for v in points.values())
+    worst = max([worst] + [float(rel(a, b)) for _, a, b in accepted if len(a)])
+    abs_worst = max(float(np.abs(a - b).max()) for a, b in points.values())
+    e_data = tgt.log_prob(torch.as_tensor(data, device="cuda")).double().cpu().numpy()
+    fin64 = points[f"mala_{cfg_q.post_mcmc_steps - 1}"][1]
+    low = np.argsort(fin64)[:n_low]
+    choice_np = choice.cpu().numpy()
+    print(f"[outlier] K1 against the plain float64 energy over every state and accepted "
+          f"proposal: worst relative gap {worst:.3e} (K1's tolerance {TOL_LJ:.0e}), worst "
+          f"absolute {abs_worst:.4f}; ground truth's lowest log-prob {e_data.min():.2f}; "
+          f"final samples below it {int((fin64 < e_data.min()).sum())}")
+    sde64 = points["sde_end"][1]
+    print(f"[outlier] at the end of the SDE {int((sde64 < e_data.min()).sum())} of {nq} "
+          f"chains lie below the ground truth's lowest (lowest {sde64.min():.2f}); the final "
+          f"resample kept {len(np.unique(choice_np))} ancestors")
+    for rank, c in enumerate(low):
+        anc = int(choice_np[c])
+        k1_sde, p_sde = points["sde_end"][0][anc], points["sde_end"][1][anc]
+        k1_res, p_res = points["resampled"][0][c], points["resampled"][1][c]
+        mala = [(points[f"mala_{k}"][0][c], points[f"mala_{k}"][1][c])
+                for k in range(cfg_q.post_mcmc_steps)]
+        acc = [(k, a[list(i).index(c)], b[list(i).index(c)])
+               for k, (i, a, b) in enumerate(accepted) if c in i]
+        print(f"[outlier] #{rank} chain {c} (ancestor {anc}, its SDE weight {float(a_end[anc]):.2f}"
+              f", {int((choice_np == anc).sum())} copies): SDE end K1 {k1_sde:.3f} plain "
+              f"{p_sde:.3f}; resampled K1 {k1_res:.3f} plain {p_res:.3f}; MALA K1/plain "
+              + " ".join(f"{a:.2f}/{b:.2f}" for a, b in mala)
+              + f"; {len(acc)} accepted proposals: "
+              + " ".join(f"s{k}:{a:.2f}/{b:.2f}" for k, a, b in acc))
+    return worst
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2309,6 +2444,485 @@ def phase_peptides(kernels, tmp):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+# tests/test_annealing_oracle.py's five runs: the integrator keys of each and
+# its bound on the within-mode variance (rtol against exact samples of p²)
+ORACLE_MODES = {
+    "exact": (dict(divergence_mode="exact"), 0.13),
+    "hutchinson_mala": (dict(divergence_mode="hutchinson", post_mcmc_steps=30), 0.1),
+    "hutchinson_ess": (dict(divergence_mode="hutchinson", hutchinson_probes=2,
+                            ess_resampling_threshold=0.5, post_mcmc_steps=30), 0.1),
+    "hutch_ess_k10": (dict(divergence_mode="hutchinson", hutchinson_probes=2,
+                           ess_resampling_threshold=0.5, divergence_update_interval=10,
+                           post_mcmc_steps=30), 0.1),
+    "hutchpp": (dict(divergence_mode="hutchpp", hutchinson_probes=2,
+                     ess_resampling_threshold=0.5, post_mcmc_steps=30), 0.1),
+}
+TOL_CARD_CPU = 1e-4  # a second derivative in f32, summed in another order on each device
+
+
+def oracle_run(mode_kw, seed, n_chains=2048):
+    """One run of the oracle test: GMM-40 annealed to p² (factor 2) by the
+    exact noised-GMM score and energy, 2,048 chains x 1,000 steps, resampling
+    to step 930, the final resample, dt_negative_time 1e-2. Returns (the
+    run's statistics, its wall seconds)."""
+    import numpy as np
+    import torch
+
+    from pita_torch.metrics.distances import wasserstein2_exact
+    from pita_torch.sampler import IntegratorConfig, integrate_sde
+    from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
+    from pita_torch.targets import GMM40, gmm_power
+    from pita_torch.targets.gmm import GMMEnergyOracle, GMMScoreOracle
+
+    base = GMM40()
+    target = gmm_power(base, 2)
+    sched = ElucidatingNoiseSchedule(sigma_min=0.01, sigma_max=80.0, rho=7.0)
+    cfg = IntegratorConfig(num_integration_steps=1000, end_resampling_step=930,
+                           resampling_interval=1, resample_at_end=True, should_mean_free=False,
+                           adaptive_mcmc=True, dt_negative_time=1e-2, **mode_kw)
+    scale = math.sqrt(float(sched.h(torch.tensor(1.0))) / 2.0)
+    x1 = torch.randn(n_chains, 2, generator=torch.Generator("cuda").manual_seed(seed),
+                     device="cuda") * scale
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = integrate_sde(x1, GMMScoreOracle(base), GMMEnergyOracle(base), sched,
+                        ConstantAnnealingSchedule(annealing_factor=2.0), target, 1.0, cfg,
+                        seed=seed + 1000, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(res.samples).all():
+        fail(f"an oracle run ({mode_kw}) produced non-finite samples")
+    ref = target.sample(n_chains, torch.Generator("cuda").manual_seed(seed + 2000))
+    s, r = res.samples.cpu().numpy(), ref.cpu().numpy()
+    locs = base.locs.numpy()
+
+    def stats(v):  # tests/test_annealing_oracle.py:53-61
+        m = ((v[:, None, :] - locs[None]) ** 2).sum(-1).argmin(1)
+        return ((v - locs[m]) ** 2).mean(), np.bincount(m, minlength=len(locs)) / len(v)
+
+    var_g, occ_g = stats(s)
+    var_r, occ_r = stats(r)
+    lp, lp_ref = target.log_prob(res.samples), target.log_prob(ref)
+    return dict(var=float(var_g), var_ref=float(var_r),
+                tv=float(0.5 * np.abs(occ_g - occ_r).sum()),
+                w2=wasserstein2_exact(s[:1024], r[:1024]),
+                far=int((lp < lp_ref.min()).sum()), lowest=float(lp.min()),
+                lowest_ref=float(lp_ref.min())), wall
+
+
+def phase_oracle_runs(kernels):
+    """Phase 14.1: the five oracle runs held to the test's bounds, then
+    hutch_ess_k10 over 8 seeds: the W2 range and the count of far-off
+    samples (log-density under p² below the lowest of 2,048 exact draws).
+    No kernel may launch."""
+    out = {}
+    reset_counts(kernels)
+    for name, (kw, rtol) in ORACLE_MODES.items():
+        st, wall = oracle_run(kw, seed=0)
+        ok = (abs(st["var"] - st["var_ref"]) <= rtol * st["var_ref"] and st["tv"] < 0.3
+              and st["w2"] < 12.0 and (name != "exact" or abs(st["var"] - 2 * st["var_ref"]) > 0.5))
+        print(f"[phase 14] oracle {name}: {wall:.2f} s ({1e3 * wall / 1000:.2f} ms a step); "
+              f"within-mode variance {st['var']:.4f} vs exact {st['var_ref']:.4f} (rtol {rtol}), "
+              f"occupancy TV {st['tv']:.4f} (< 0.3), W2 {st['w2']:.3f} (< 12); far-off samples "
+              f"{st['far']} (lowest log p² {st['lowest']:.2f}, exact draws' "
+              f"{st['lowest_ref']:.2f})"
+              f" -> {'pass' if ok else 'MISS'}")
+        if not ok:
+            fail(f"the oracle run {name} misses the bounds of tests/test_annealing_oracle.py")
+        out[f"{name}_s"] = wall
+        out[f"{name}_w2"] = st["w2"]
+    w2s, far = [], []
+    for seed in range(1, 9):
+        st, _ = oracle_run(ORACLE_MODES["hutch_ess_k10"][0], seed=seed)
+        w2s.append(st["w2"])
+        far.append(st["far"])
+    print(f"[phase 14] hutch_ess_k10 over seeds 1-8: W2 {min(w2s):.3f} to {max(w2s):.3f} "
+          f"({', '.join(f'{w:.2f}' for w in w2s)}); far-off samples by seed {far}, "
+          f"{sum(far)} of {8 * 2048}")
+    counts = {f.__name__: f.launches for f in kernels}
+    if any(counts.values()):
+        fail(f"the oracle runs launched a kernel: {counts}")
+    out.update(k10_w2_min=min(w2s), k10_w2_max=max(w2s), k10_far=sum(far))
+    return out
+
+
+def phase_lj_sampler_modes(kernels, wl, wl32):
+    """Phase 14.2 and 14.3 on the LJ55 bench pair: Hutch++ at rank 165 = D
+    against the edge-operator trace (f32 pair, 64 chains); a hutchpp wiring
+    run (bf16 pair, rank 16, 2 probes, 256 chains x 20 steps: K2 and K3 must
+    launch, K4 and K5 not); the score-free path's exact Laplacian at the
+    first step, card against CPU (f32 pair; the CPU takes the first of the
+    64 chains: 165 double-backward rows take ~13 s there), then 64 x 8
+    steps; a pinned run through the final resample."""
+    import torch
+
+    from pita_torch.io.bench_asset import load_lj55_bench
+    from pita_torch.nets.egnn_fast import score_divergence_fast
+    from pita_torch.ops.divergence import hutchpp_divergence
+    from pita_torch.sampler import integrate_sde
+    from pita_torch.sampler.terms import compute_sde_terms
+
+    out = {}
+    gen = torch.Generator("cuda").manual_seed(14)
+    x = torch.randn(64, 165, generator=gen, device="cuda") * wl32.prior_scale * 0.05
+    x = x + torch.as_tensor(wl32.data_T_low[:64], device="cuda")
+    t = torch.full((64,), 0.3, device="cuda")
+    ht = wl32.noise.h(t)
+    twin = wl32.score.on_autograd_route()
+    fn = lambda tq, xq: twin.score(wl32.noise.h(tq), xq, 1.0)
+    S = torch.randint(0, 2, (165, 64, 165), generator=gen, device="cuda").float() * 2 - 1
+    G = torch.randint(0, 2, (2, 64, 165), generator=gen, device="cuda").float() * 2 - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hpp = hutchpp_divergence(fn, t, x, S, G)
+    torch.cuda.synchronize()
+    t_hpp = time.perf_counter() - t0
+    ref = score_divergence_fast(wl32.score, ht, x, 1.0, chain_chunk=64)
+    err = float((hpp - ref).abs().max() / ref.abs().max())
+    print(f"[phase 14] Hutch++ at rank 165 = D against the edge-operator trace, f32 bench pair, "
+          f"64 chains at t = 0.3: max err {err:.2e} of the largest |trace| "
+          f"{float(ref.abs().max()):.1f} (tol 1e-3); {t_hpp:.2f} s (332 forward-mode passes of "
+          f"a chain each, 16 a pass)")
+    if not err <= 1e-3:
+        fail("Hutch++ at full rank disagrees with the exact trace")
+    out["hutchpp_full_rank_err"] = err
+
+    x1 = torch.randn(256, 165, generator=gen, device="cuda") * wl.prior_scale
+    cfg = hutch_cfg(divergence_mode="hutchpp", hutchpp_rank=16, num_integration_steps=20,
+                    end_resampling_step=20, divergence_update_interval=1)
+    run = lambda n: integrate_sde(x1, wl.score, wl.energy, wl.noise, wl.anneal, wl.target, 1.0,
+                                  cfg.replace(num_integration_steps=n, end_resampling_step=n),
+                                  seed=5, device="cuda")
+    run(1)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = run(20)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    c = {f.__name__: f.launches for f in kernels}
+    print(f"[phase 14] hutchpp (rank 16, 2 probes) on the bf16 bench pair, 256 chains x 20 "
+          f"steps: {ms:.1f} ms a step; launches {c}")
+    if not torch.isfinite(res.samples).all() or not torch.isfinite(res.logweights).all():
+        fail("the hutchpp run gave non-finite samples or weights")
+    if not (c["egnn_layer_forward_tc"] and c["egnn_layer_backward_tc"]):
+        fail("the hutchpp run did not launch the tensor-core K2 and K3")
+    if any(c[k] for k in ("egnn_layer_tangent", "egnn_layer_tangent_tc", "g_operator_contract",
+                          "_contract_scalar")):
+        fail("the hutchpp run launched K4 or K5")
+    out["hutchpp_step_ms"] = ms
+
+    # the score-free path: div(b_t) = −ΔU·g²/2 from the energy net's autograd copy,
+    # at the first step (t = 1, prior samples: there the network's share of
+    # ΔU is ~1e-7, the preconditioner's quadratic term the rest) and at
+    # t = 0.3 on the near-ground-truth configurations above, where the
+    # network's term leads; the card's 64 chains, the CPU's first chain
+    x1 = torch.randn(64, 165, generator=gen, device="cuda") * wl32.prior_scale
+    host = load_lj55_bench(device="cpu", compute_dtype=torch.float32)
+    terms_on = lambda w, tt, xx: compute_sde_terms(None, w.energy, w.noise, w.anneal, tt, xx, 1.0)
+    errs = []
+    for label, tt, xx in (("t = 1, the first step", torch.ones(64, device="cuda"), x1),
+                          ("t = 0.3", t, x)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = terms_on(wl32, tt, xx).divergence
+        torch.cuda.synchronize()
+        t_lap = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = terms_on(host, tt[:1].cpu(), xx[:1].cpu()).divergence
+        t_lap_cpu = time.perf_counter() - t0
+        errs.append(float((card[:1].cpu() - cpu).abs().max() / cpu.abs().max()))
+        print(f"[phase 14] score-free exact Laplacian ({label}), f32 bench pair: 64 chains on "
+              f"the card {t_lap:.2f} s (165 rows, reverse over reverse), the first on the CPU "
+              f"{t_lap_cpu:.2f} s: div(b_t) {float(cpu[0]):.6g}, rel err {errs[-1]:.2e} "
+              f"(tol {TOL_CARD_CPU})")
+    err = max(errs)
+    if not err <= TOL_CARD_CPU:
+        fail("the score-free Laplacian on the card disagrees with the CPU")
+    out["laplacian_rel_err"] = err
+    reset_counts(kernels)
+    for name, score, pin in (("score-free", None, False), ("pinned", wl.score, True)):
+        cfg = hutch_cfg(num_integration_steps=8, end_resampling_step=7, resample_at_end=True,
+                        divergence_update_interval=1, pin_energy=pin)
+        t0 = time.perf_counter()
+        res = integrate_sde(x1, score, wl.energy, wl.noise, wl.anneal, wl.target, 1.0, cfg,
+                            seed=6, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fin = bool(torch.isfinite(res.samples).all() and torch.isfinite(res.logweights).all())
+        print(f"[phase 14] {name} run, bf16 bench pair, 64 chains x 8 steps with the final "
+              f"resample: {wall:.2f} s; samples and weights finite: {fin}; final weight std "
+              f"{float(res.logweights[-1].std()):.3f}")
+        if not fin:
+            fail(f"the {name} run gave non-finite samples or weights")
+        out[f"{name.replace('-', '_')}_s"] = wall
+    return out
+
+
+def card_vs_cpu_step(cfg, tr, label):
+    """One training step at batch STEP_CPU_BATCH on the card against the same
+    step on the CPU, from ``tr``'s state, with the card's draws."""
+    import torch
+
+    from pita_torch.configs import build_trainer
+    from pita_torch.train.losses import LossDraws
+    from pita_torch.train.trainer import StepDraws
+
+    state = tr.state_dict()
+    state.pop("generator")
+    g, h = build_trainer(cfg, device="cuda"), build_trainer(cfg, device="cpu")
+    g.load_state_dict(state)
+    h.load_state_dict(state)
+    d = g.draw_step(0)
+    nb = STEP_CPU_BATCH
+    cut = lambda v: None if v is None else v[:nb]
+    d = StepDraws(d.idx[:nb], cut(d.rot_normal), cut(d.com_normal),
+                  LossDraws(d.loss.ln_sigma_draw[:nb], d.loss.noise[:nb]))
+    hd = StepDraws(*(None if v is None else v.cpu() for v in d[:3]),
+                   LossDraws(*(v.cpu() for v in d.loss[:2])))
+    aux_c, gn_c = g.train_step(0, draws=d)
+    aux_h, gn_h = h.train_step(0, draws=hd)
+    worst = max(abs(float(aux_c[k]) - float(aux_h[k])) / max(abs(float(aux_h[k])), 1e-30)
+                for k in aux_h)
+    g_rel = abs(float(gn_c) - float(gn_h)) / float(gn_h)
+    print(f"[phase 14] {label}: one step at batch {nb}, card against CPU: losses max rel err "
+          f"{worst:.2e}, global gradient norm rel err {g_rel:.2e} (tol {TOL_STEP})")
+    if not (worst <= TOL_STEP and g_rel <= TOL_STEP):
+        fail(f"a {label} training step on the card disagrees with the same step on the CPU")
+    return max(worst, g_rel)
+
+
+def fit_cli(kernels, args, exp, tmp):
+    """train_cli.main(args) with fit and evaluate timed and the trainer kept;
+    returns (trainer, fit seconds, evaluate seconds, the kernels' launches)."""
+    import importlib.util
+
+    import torch
+
+    from pita_torch import train_cli
+    from pita_torch.train.trainer import EnergyTempTrainer
+
+    kept, times = [], {"fit": 0.0, "evaluate": 0.0}
+    orig_fit, orig_eval = EnergyTempTrainer.fit, EnergyTempTrainer.evaluate
+
+    def fit(self, *a, **k):
+        kept.append(self)
+        t0 = time.perf_counter()
+        out = orig_fit(self, *a, **k)
+        torch.cuda.synchronize()
+        times["fit"] += time.perf_counter() - t0
+        return out
+
+    def evaluate(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig_eval(self, *a, **k)
+        torch.cuda.synchronize()
+        times["evaluate"] += time.perf_counter() - t0
+        return out
+
+    EnergyTempTrainer.fit, EnergyTempTrainer.evaluate = fit, evaluate
+    reset_counts(kernels)
+    try:
+        train_cli.main(args + [f"out_dir={tmp}", "test=false"]
+                       + (["trainer.make_plots=true"]
+                          if importlib.util.find_spec("matplotlib") else []))
+    finally:
+        EnergyTempTrainer.fit, EnergyTempTrainer.evaluate = orig_fit, orig_eval
+    return kept[0], times["fit"], times["evaluate"], {f.__name__: f.launches for f in kernels}
+
+
+def check_preset_run(tr, exp, tmp, counts, losses_ok=True):
+    import importlib.util
+
+    import torch
+
+    m = tr.metrics_history[-1]
+    buf1 = int(tr.buffers.size[1])
+    finite = all(math.isfinite(v) for v in m.values() if isinstance(v, float))
+    print(f"[phase 14] {exp}: val metrics " + ", ".join(
+        f"{k} {v:.4g}" for k, v in m.items() if k.startswith("val/") and isinstance(v, float)))
+    if not finite:
+        fail(f"the {exp} run logged a non-finite metric")
+    if buf1 == 0 or not bool(torch.isfinite(tr.buffers.energy[1, :buf1]).all()):
+        fail(f"the {exp} fill left the rung-1 buffer empty or non-finite")
+    if any(counts.values()):
+        fail(f"the {exp} run launched one of the port's kernels: {counts}")
+    if importlib.util.find_spec("matplotlib"):
+        fig = os.path.join(tmp, exp, "plots", "epoch_1", "gmm_samples.png")
+        if exp == "gmm" and not os.path.exists(fig):
+            fail("the gmm run wrote no GMM figure")
+    else:
+        print(f"[phase 14] {exp}: no matplotlib on this machine, so no figures (the CPU test "
+              f"tests/test_torch_mlp.py writes the GMM figure)")
+    return buf1
+
+
+def phase_presets(kernels, tmp):
+    """Phase 14.4-14.6: the gmm preset by train_cli with no experiment, the
+    dw4 preset, TorchMD-ET behind the lj13 preset."""
+    import numpy as np
+    import torch
+
+    from pita_torch.baselines.mcmc import jittered_lattice
+    from pita_torch.configs import compose, parse_overrides
+    from pita_torch.nets import TorchMDETBackbone
+
+    out = {}
+    cut = ["trainer.num_epochs_per_temp=2,100", "trainer.max_epochs=2",
+           "trainer.n_train_batches_per_epoch=10", "trainer.training_batch_size=512",
+           "trainer.num_temp_annealed_samples=2048"]
+    args = ["device=cuda"] + cut
+    tr, t_fit, t_eval, counts = fit_cli(kernels, args, "gmm", os.path.join(tmp, "gmm"))
+    buf1 = check_preset_run(tr, "gmm", os.path.join(tmp, "gmm"), counts)
+    print(f"[phase 14] train_cli with no experiment (gmm: MLP 128 x 3, emb 128), 2 epochs x 10 "
+          f"batches of 512 and the transition fill at 2,048 chains x 1,000 steps (2 islands) "
+          f"and the 512-chain pass without resampling: fit {t_fit:.2f} s, of which the fill "
+          f"{t_eval:.2f} s; rung-1 buffer {buf1} rows; launches {counts}")
+    cfg = compose("gmm", overrides=dict(parse_overrides(cut),
+                                        out_dir=os.path.join(tmp, "gmm_step")))
+    out.update(gmm_fit_s=t_fit, gmm_fill_s=t_eval,
+               gmm_step_rel_err=card_vs_cpu_step(cfg, tr, "gmm"))
+
+    dw4_cut = ["experiment=dw4", "energy.n_warmup_steps=200", "energy.n_block_steps=20",
+               "trainer.num_epochs_per_temp=2,150,200", "trainer.max_epochs=2",
+               "trainer.n_train_batches_per_epoch=10", "trainer.training_batch_size=512",
+               "trainer.num_temp_annealed_samples=512", "trainer.num_eval_samples=512"]
+    tr, t_fit, t_eval, counts = fit_cli(kernels, ["device=cuda"] + dw4_cut, "dw4",
+                                        os.path.join(tmp, "dw4"))
+    buf1 = check_preset_run(tr, "dw4", os.path.join(tmp, "dw4"), counts)
+    print(f"[phase 14] train_cli experiment=dw4 (2-D EGNN 32 x 3 on the autograd route), MALA "
+          f"sets (256 chains, 200 + 20-step blocks), 2 epochs x 10 batches of 512 and the fill "
+          f"at 512 chains x 1,000 steps with the exact trace by the 2-D edge operators, and "
+          f"its pass without resampling: fit {t_fit:.2f} s, of which the fill {t_eval:.2f} s; "
+          f"rung-1 buffer {buf1} rows; launches {counts}")
+    cfg = compose("dw4", overrides=dict(parse_overrides(dw4_cut[1:]),
+                                        out_dir=os.path.join(tmp, "dw4_step")))
+    out.update(dw4_fit_s=t_fit, dw4_fill_s=t_eval,
+               dw4_step_rel_err=card_vs_cpu_step(cfg, tr, "dw4"))
+
+    # TorchMD-ET at its defaults on LJ55 configurations, card against CPU
+    net = TorchMDETBackbone(55).reset_parameters(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(3)
+    base = jittered_lattice(55, 2048, gen) + 0.1 * torch.randn(2048, 165, generator=gen)
+    tt = torch.rand(2048, generator=gen) * 3 - 2
+    cnet = net.with_route("autograd").cuda()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = cnet(tt.cuda(), base.cuda(), 1.0)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        n_cpu = 64
+        t0 = time.perf_counter()
+        yh = net(tt[:n_cpu], base[:n_cpu], 1.0)
+        t_cpu = time.perf_counter() - t0
+    err = float((y[:n_cpu].cpu() - yh).abs().max() / yh.abs().max())
+    print(f"[phase 14] TorchMD-ET (hidden 32, 6 layers, 1 head, 32 RBF) forward on 2,048 LJ55 "
+          f"configurations: {t_card:.3f} s on the card; the first {n_cpu} on the CPU "
+          f"{t_cpu:.2f} s: max err {err:.2e} of the largest (tol 1e-5)")
+    if not (err <= 1e-5 and bool(torch.isfinite(y).all())):
+        fail("TorchMD-ET on the card disagrees with the CPU")
+    data13 = os.path.join(tmp, "data13_et")
+    os.makedirs(data13, exist_ok=True)
+    for which in ("train", "val", "test"):
+        np.save(os.path.join(data13, f"LJ13_temp_4.0_{which}.npy"),
+                jittered_lattice(13, 512, gen).numpy())
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    from pita_torch import train_cli
+
+    train_cli.main(["experiment=lj13", "net.kind=torchmd_et", "debug=short", "device=cuda",
+                    "trainer.max_epochs=1", "test=false", f"energy.data_dir={data13}",
+                    f"out_dir={os.path.join(tmp, 'lj13_et')}"])
+    t_et = time.perf_counter() - t0
+    c = {f.__name__: f.launches for f in kernels}
+    print(f"[phase 14] train_cli experiment=lj13 net.kind=torchmd_et debug=short "
+          f"trainer.max_epochs=1 test=false: {t_et:.2f} s; launches of the port's kernels "
+          f"other than K1 {sum(v for k, v in c.items() if 'lj' not in k)}")
+    if any(v for k, v in c.items() if "lj" not in k):
+        fail("the TorchMD-ET run launched an EGNN kernel")
+    out.update(torchmd_err=err, torchmd_fwd_s=t_card, torchmd_cli_s=t_et)
+    return out
+
+
+def phase_cnf():
+    """Phase 14.7: cnf_nll on the card: the analytic Gaussian score
+    (tests/test_cnf.py, 64 samples, 200 RK4 steps, exact divergence) against
+    the closed-form NLL; the GMM oracle score on 1,024 GMM-40 samples, card
+    against CPU, with the gap to the exact −log p beside it."""
+    import torch
+
+    from pita_torch.sampler import cnf_nll
+    from pita_torch.schedules import ElucidatingNoiseSchedule
+    from pita_torch.targets import GMM40
+    from pita_torch.targets.gmm import GMMScoreOracle
+
+    class Gaussian:
+        def score(self, ht, xt, beta):
+            return -xt / (1.0 + torch.as_tensor(ht, dtype=xt.dtype).reshape(-1, 1))
+
+    sched = ElucidatingNoiseSchedule(sigma_min=0.01, sigma_max=10.0, rho=7.0)
+    x0 = torch.randn(64, 2, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    t0 = time.perf_counter()
+    res = cnf_nll(x0, Gaussian(), sched, num_steps=200, exact=True)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    true = 0.5 * (x0 ** 2).sum(-1) + math.log(2 * math.pi)
+    gap = (res.nll - true).abs()
+    ok = bool((gap <= 0.05 + 0.05 * true.abs()).all())
+    print(f"[phase 14] cnf_nll, analytic Gaussian score, 64 samples x 200 RK4 steps, exact "
+          f"divergence: {t_g:.2f} s; max |NLL - closed form| {float(gap.max()):.2e} (rtol 0.05, "
+          f"atol 0.05) -> {'pass' if ok else 'MISS'}")
+    if not ok:
+        fail("cnf_nll misses the closed-form Gaussian NLL")
+    gmm = GMM40()
+    sched80 = ElucidatingNoiseSchedule(sigma_min=0.01, sigma_max=80.0, rho=7.0)
+    xg = gmm.sample(1024, torch.Generator("cuda").manual_seed(1))
+    t0 = time.perf_counter()
+    card = cnf_nll(xg, GMMScoreOracle(gmm), sched80, num_steps=100, exact=True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = cnf_nll(xg.cpu(), GMMScoreOracle(gmm), sched80, num_steps=100, exact=True)
+    t_cpu = time.perf_counter() - t0
+    err = float((card.nll.cpu() - cpu.nll).abs().max() / cpu.nll.abs().max())
+    exact_gap = float((card.nll + gmm.log_prob(xg)).mean())
+    print(f"[phase 14] cnf_nll, GMM oracle score, 1,024 GMM-40 samples x 100 RK4 steps: card "
+          f"{t_card:.2f} s, CPU {t_cpu:.2f} s, max rel err {err:.2e} (tol {TOL_CARD_CPU}); "
+          f"mean NLL - exact -log p {exact_gap:.4f} (the prior at t = 1 is N(0, h(1)), not the "
+          f"noised GMM: a number, not a gate)")
+    if not err <= TOL_CARD_CPU:
+        fail("cnf_nll on the card disagrees with the CPU")
+    return dict(cnf_gauss_max_gap=float(gap.max()), cnf_gmm_rel_err=err,
+                cnf_gmm_exact_gap=exact_gap)
+
+
+def phase_oracle(kernels, tmp, wl=None, wl32=None):
+    """Phase 14: the analytic GMM oracle, Hutch++, the Laplacian and
+    pinning, the gmm and dw4 presets, TorchMD-ET and the CNF on the card."""
+    import torch
+
+    from pita_torch.io.bench_asset import load_lj55_bench
+
+    wl = wl or load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
+    wl32 = wl32 or load_lj55_bench(device="cuda", compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+    for name, run in (("oracle", lambda: phase_oracle_runs(kernels)),
+                      ("LJ55 sampler modes", lambda: phase_lj_sampler_modes(kernels, wl, wl32)),
+                      ("presets", lambda: phase_presets(kernels, tmp)),
+                      ("CNF", phase_cnf)):
+        t1 = time.perf_counter()
+        out.update(run())
+        parts[name] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[phase 14] the oracle and the new presets: {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main():
     import torch
 
@@ -2358,11 +2972,18 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_peptides(kernels, tmp)
         return 0
+    if "--oracle-only" in sys.argv[1:]:  # quick check of the oracle and the new presets
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_oracle(kernels, tmp)
+        return 0
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
     wl32 = load_lj55_bench(device="cuda", compute_dtype=torch.float32)
     data = wl.data_T_low
     profile = "--profile" in sys.argv[1:]
+    if "--outlier-seed" in sys.argv[1:]:  # follow phase 5's lowest samples at one seed
+        trace_outlier(wl, data, int(sys.argv[sys.argv.index("--outlier-seed") + 1]))
+        return 0
 
     # phases 2, 3, 6, 7: every kernel against its plain version
     k1, k1_scalar = phase_lj(data)
@@ -2469,6 +3090,8 @@ def main():
         tools_rows = phase_tools(kernels, tmp, ckpt)
         # phase 13: the alanine-peptide path (force field, MD, the aldp ladder)
         peptide = phase_peptides(kernels, tmp)
+        # phase 14: the GMM oracle, the rest of the sampler, gmm, dw4, TorchMD-ET
+        oracle = phase_oracle(kernels, tmp, wl, wl32)
 
     src = "pita_torch/csrc/"
     line = {"kernels": [
@@ -2511,7 +3134,7 @@ def main():
              launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
         *training_rows,
         *tools_rows,
-    ], "peptide": peptide}
+    ], "peptide": peptide, "oracle": oracle}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
 """Experiment presets and dotted-override composition.
 
-Counterpart of ``pita_tpu/configs/registry.py`` for the LJ and the
-alanine-peptide experiments: ``ExperimentConfig``, the ``lj13``, ``lj55``,
+Counterpart of ``pita_tpu/configs/registry.py``: ``ExperimentConfig``, the
+``gmm`` (the default, as in pita_tpu), ``dw4``, ``lj13``, ``lj55``,
 ``aldp``, ``al3``, ``al4`` and ``alp_diffusion_baseline`` presets, the
 ``short`` and ``score_only`` debug overlays, ``compose`` (preset, debug
 overlay, YAML overlay, overrides), ``parse_overrides`` and
-``build_trainer``. The presets are copies of ``pita_tpu``'s (this package
-imports nothing of it), without the TPU-only integrator key
-``segment_size``. ``pita_tpu``'s ``integrator.pallas_divergence`` is
-accepted as the port's ``integrator.divergence_tangent_kernel`` (the K4
-route). The gmm and dw4 presets and the ``torchmd_et`` net are not ported
-(ROADMAP.md, Queue 1).
+``build_trainer`` with the energy kinds ``gmm``, ``dw4``, ``lj`` and
+``alp`` and the net kinds ``mlp``, ``egnn``, ``dit3d`` and ``torchmd_et``.
+The presets are copies of ``pita_tpu``'s (this package imports nothing of
+it), without the TPU-only integrator key ``segment_size``. ``pita_tpu``'s
+``integrator.pallas_divergence`` is accepted as the port's
+``integrator.divergence_tangent_kernel`` (the K4 route).
 """
 
 import ast
@@ -40,6 +40,61 @@ class ExperimentConfig:
     logger: tuple = ("csv", "console")
     out_dir: str = "outputs"
     tags: tuple = ()
+
+
+def _gmm() -> dict:
+    """GMM-40 (registry.py:113-140)."""
+    return dict(
+        name="gmm",
+        tags=("GMM",),
+        energy=dict(kind="gmm", normalized=True),
+        net=dict(kind="mlp", hidden_size=128, hidden_layers=3, emb_size=128),
+        noise_schedule=dict(kind="elucidating", sigma_min=0.01, sigma_max=80.0, rho=7.0),
+        annealing_schedule=dict(kind="constant"),
+        trainer=dict(
+            temperatures=(3.0, 2.0, 1.0),
+            num_epochs_per_temp=(100, 100),
+            training_batch_size=512,
+            should_mean_free=False,
+            train_on_all_temps=True,
+            num_init_samples=10000,
+            seed=12345,
+        ),
+        loss=dict(w_target_score=0.01),
+        integrator=dict(
+            num_integration_steps=1000,
+            end_resampling_step=900,
+            resampling_interval=1,
+            resample_at_end=True,
+            should_mean_free=False,
+        ),
+    )
+
+
+def _dw4() -> dict:
+    """DW4, four particles in 2D (registry.py:143-165)."""
+    return dict(
+        name="dw4",
+        tags=("DW4",),
+        energy=dict(kind="dw4"),
+        net=dict(kind="egnn", hidden_nf=32, n_layers=3, n_spatial_dim=2),
+        noise_schedule=dict(kind="elucidating", sigma_min=0.05, sigma_max=80.0, rho=7.0),
+        annealing_schedule=dict(kind="constant"),
+        trainer=dict(
+            temperatures=(3.0, 2.0, 1.5, 1.0),
+            num_epochs_per_temp=(150, 150, 200),
+            training_batch_size=512,
+            train_on_all_temps=True,
+            seed=12345,
+        ),
+        loss=dict(w_target_score=0.01),
+        integrator=dict(
+            num_integration_steps=1000,
+            end_resampling_step=900,
+            resampling_interval=1,
+            resample_at_end=True,
+        ),
+    )
 
 
 def _lj13() -> dict:
@@ -182,6 +237,8 @@ def _alp_diffusion_baseline() -> dict:
 
 
 EXPERIMENTS = {
+    "gmm": _gmm,
+    "dw4": _dw4,
     "lj13": _lj13,
     "lj55": _lj55,
     "aldp": _aldp,
@@ -259,10 +316,13 @@ def parse_overrides(args: List[str]) -> dict:
     return out
 
 
-def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None,
+def compose(experiment: str = "gmm", overrides: Optional[Dict[str, Any]] = None,
             debug: Optional[str] = None, yaml_path: Optional[str] = None) -> ExperimentConfig:
     """Preset, then the debug overlay, then the YAML file's keys (dotted or
-    top-level, as on the command line), then the overrides."""
+    top-level, as on the command line), then the overrides. A ``net.kind``
+    other than the preset's starts the net group afresh from that backbone's
+    defaults, as Hydra's ``net=<group>`` does (pita_tpu keeps the preset's
+    other net keys, which the new backbone does not take)."""
     if experiment not in EXPERIMENTS:
         raise ValueError(f"experiment {experiment!r} is not ported (have {sorted(EXPERIMENTS)})")
     cfg = copy.deepcopy(EXPERIMENTS[experiment]())
@@ -273,6 +333,9 @@ def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None
         with open(yaml_path) as f:
             merged.update(yaml.safe_load(f) or {})
     merged.update(overrides or {})
+    if merged.get("net.kind", cfg["net"]["kind"]) != cfg["net"]["kind"]:
+        # another backbone: its own defaults, as Hydra's net=<group> selects
+        cfg["net"] = {"kind": merged["net.kind"]}
     for k, v in merged.items():
         if "." in k:
             _set_dotted(cfg, k, v)
@@ -291,6 +354,14 @@ def compose(experiment: str = "lj13", overrides: Optional[Dict[str, Any]] = None
 def _build_target(spec: dict, temperature: float):
     spec = dict(spec)
     kind = spec.pop("kind")
+    if kind == "gmm":
+        from pita_torch.targets import GMM40
+
+        return GMM40(temperature=temperature, **spec)
+    if kind == "dw4":
+        from pita_torch.targets import DoubleWell4
+
+        return DoubleWell4(temperature=temperature, **spec)
     if kind == "lj":
         from pita_torch.targets import LennardJones
 
@@ -299,12 +370,16 @@ def _build_target(spec: dict, temperature: float):
         from pita_torch.targets import ALPEnergy
 
         return ALPEnergy(temperature=temperature, **spec)
-    raise ValueError(f"energy kind {kind!r} is not ported")
+    raise ValueError(f"unknown energy kind {kind!r}")
 
 
 def _build_backbone_factory(spec: dict, target):
     spec = dict(spec)
     kind = spec.pop("kind")
+    if kind == "mlp":
+        from pita_torch.nets import MLPBackbone
+
+        return lambda: MLPBackbone(in_dim=target.dim, out_dim=target.dim, **spec)
     if kind == "egnn":
         from pita_torch.nets import EGNNBackbone
 
@@ -317,9 +392,10 @@ def _build_backbone_factory(spec: dict, target):
         return lambda: DiT3DBackbone(n_particles=target.n_particles,
                                      n_spatial_dim=target.n_spatial_dim, **spec)
     if kind == "torchmd_et":
-        raise ValueError("net kind 'torchmd_et' is not ported yet (ROADMAP.md, Queue 1: "
-                         "TorchMD-ET with atom_features)")
-    raise ValueError(f"net kind {kind!r} is not ported")
+        from pita_torch.nets import TorchMDETBackbone
+
+        return lambda: TorchMDETBackbone(n_particles=target.n_particles, **spec)
+    raise ValueError(f"unknown net kind {kind!r}")
 
 
 def _build_noise_schedule(spec: dict):

@@ -19,7 +19,7 @@ def main(argv=None):
     from pita_torch.configs import build_trainer, compose, parse_overrides
     from pita_torch.io.checkpoint import restore_checkpoint
 
-    flags = dict(experiment="lj13", debug=None, ckpt_path=None, device=None)
+    flags = dict(experiment="gmm", debug=None, ckpt_path=None, device=None)
     overrides = {}
     for a in argv:
         key = a.split("=", 1)[0]

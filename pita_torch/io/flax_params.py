@@ -12,8 +12,9 @@ msgpack type.
 renumbering when ``attention=False``) and returns the state dict of
 ``pita_torch.nets.egnn.EGNNBackbone``. ``dit_params_from_tree`` does the
 same for ``pita_tpu/nets/dit.py``'s DiT3D and returns the state dict of
-``pita_torch.nets.dit.DiT3DBackbone``. ``trainer_state_from_tree`` extends
-them to a whole ``pita_tpu`` trainer state (the tree that
+``pita_torch.nets.dit.DiT3DBackbone``; ``mlp_params_from_tree`` and
+``torchmd_et_params_from_tree`` for the MLP and TorchMD-ET backbones.
+``trainer_state_from_tree`` extends them to a whole ``pita_tpu`` trainer state (the tree that
 ``pita_tpu/io/checkpoint.py:_state_pytree`` builds, with numpy leaves) and
 returns ``pita_torch.train.trainer.EnergyTempTrainer.state_dict``'s layout.
 """
@@ -158,17 +159,20 @@ def egnn_params_from_tree(tree, n_layers: int, attention: bool = True) -> dict:
     return sd
 
 
+def _dense(sd, name, q, bias=True):
+    """A flax Dense (kernel (in, out)) as an ``nn.Linear``'s weight (out, in)."""
+    sd[f"{name}.weight"] = torch.as_tensor(np.array(q["kernel"], dtype=np.float32).T.copy())
+    if bias:
+        sd[f"{name}.bias"] = torch.as_tensor(np.array(q["bias"], dtype=np.float32))
+
+
 def dit_params_from_tree(tree, n_blocks: int) -> dict:
     """The DiT3DBackbone flax tree as the port's state dict (float32
     tensors). A flax kernel (in, out) becomes a torch weight (out, in); a
     LayerNorm's ``scale`` becomes its ``weight``."""
     p = tree["params"]
     sd = {}
-
-    def dense(name, q, bias=True):
-        sd[f"{name}.weight"] = torch.as_tensor(np.array(q["kernel"], dtype=np.float32).T.copy())
-        if bias:
-            sd[f"{name}.bias"] = torch.as_tensor(np.array(q["bias"], dtype=np.float32))
+    dense = lambda name, q, bias=True: _dense(sd, name, q, bias)
 
     def norm(name, q):
         sd[f"{name}.weight"] = torch.as_tensor(np.array(q["scale"], dtype=np.float32))
@@ -193,13 +197,67 @@ def dit_params_from_tree(tree, n_blocks: int) -> dict:
     return sd
 
 
+def mlp_params_from_tree(tree) -> dict:
+    """The MLPBackbone flax tree (pita_tpu/nets/mlp.py) as the state dict of
+    ``pita_torch.nets.mlp.MLPBackbone``: ``Dense_0`` the input layer,
+    ``Dense_1`` the time condition, ``ResidualBlock_{i}/Dense_0`` the
+    blocks, ``Dense_2`` the last layer."""
+    p = tree["params"]
+    sd = {}
+    _dense(sd, "inp", p["Dense_0"])
+    _dense(sd, "t_cond", p["Dense_1"])
+    i = 0
+    while f"ResidualBlock_{i}" in p:
+        _dense(sd, f"blocks.{i}", p[f"ResidualBlock_{i}"]["Dense_0"])
+        i += 1
+    _dense(sd, "out", p["Dense_2"])
+    return sd
+
+
+def _layernorm(sd, name, q):
+    sd[f"{name}.weight"] = torch.as_tensor(np.array(q["scale"], dtype=np.float32))
+    sd[f"{name}.bias"] = torch.as_tensor(np.array(q["bias"], dtype=np.float32))
+
+
+def torchmd_et_params_from_tree(tree) -> dict:
+    """The TorchMDETBackbone flax tree (pita_tpu/nets/torchmd_et.py) as the
+    state dict of ``pita_torch.nets.torchmd_et.TorchMDETBackbone``. Flax
+    numbers each module's Dense and LayerNorm submodules in call order
+    (:66-107, :122-135, :175-207)."""
+    p = tree["params"]
+    sd = {}
+    _dense(sd, "embed", p["Dense_0"])
+    _dense(sd, "attr", p["Dense_1"])
+    mha = ("mix0", "mix1", "q", "k", "v", "vec_proj", "dk", "dv", "o")
+    i = 0
+    while f"EquivariantMHA_{i}" in p:
+        q = p[f"EquivariantMHA_{i}"]
+        for j, name in enumerate(mha):
+            _dense(sd, f"layers.{i}.{name}", q[f"Dense_{j}"], bias=name != "vec_proj")
+        for j, name in enumerate(("norm_h", "norm_q", "norm_k")):
+            if f"LayerNorm_{j}" in q:
+                _layernorm(sd, f"layers.{i}.{name}", q[f"LayerNorm_{j}"])
+        i += 1
+    for b in range(2):
+        q = p[f"GatedEquivariantBlock_{b}"]
+        for j, name in enumerate(("vec1", "vec2", "mix0", "mix1")):
+            _dense(sd, f"head.{b}.{name}", q[f"Dense_{j}"], bias=j >= 2)
+    return sd
+
+
 def net_params_from_tree(tree, n_layers: int, attention: bool = True) -> dict:
     """A backbone's flax tree as the port's state dict: the DiT3D's (with
-    ``n_layers`` blocks) when the tree has its ``sigma_map``, else the
-    EGNN's."""
-    if "sigma_map" in tree["params"]:
+    ``n_layers`` blocks) when the tree has its ``sigma_map``, TorchMD-ET's
+    when it has an ``EquivariantMHA_0``, the EGNN's when it has an
+    ``EGCL_0``, else the MLP's."""
+    p = tree["params"]
+    if "sigma_map" in p:
         return dit_params_from_tree(tree, n_layers)
-    return egnn_params_from_tree(tree, n_layers, attention)
+    if "EquivariantMHA_0" in p:
+        return torchmd_et_params_from_tree(tree)
+    if "EGCL_0" in p:
+        return egnn_params_from_tree(tree, n_layers, attention)
+    return mlp_params_from_tree(tree)
 
 
 def load_egnn_params(blob, n_layers: int, attention: bool = True) -> dict:
@@ -225,9 +283,9 @@ def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dic
     trainer state: the score and energy weights, their EMA weights and
     ``num_updates``, Adam's ``count``, ``mu`` and ``nu`` (over the score and
     the energy tree, as optax holds them), the stacked buffers and the epoch.
-    ``n_layers`` is the EGNN's layers or the DiT3D's blocks
-    (``net_params_from_tree``). The generator's state is not carried over
-    (JAX keys are not torch's)."""
+    ``n_layers`` is the EGNN's layers or the DiT3D's blocks (the MLP and
+    TorchMD-ET trees give their own depth; ``net_params_from_tree``). The
+    generator's state is not carried over (JAX keys are not torch's)."""
     sd = lambda tree: net_params_from_tree(tree, n_layers, attention)
     adam = _adam_node(state["opt_state"])
     if adam is None:
@@ -256,5 +314,6 @@ def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dic
 
 __all__ = [
     "W_FIELDS", "dit_params_from_tree", "egnn_params_from_tree", "load_egnn_params",
-    "msgpack_restore", "net_params_from_tree", "trainer_state_from_tree",
+    "mlp_params_from_tree", "msgpack_restore", "net_params_from_tree",
+    "torchmd_et_params_from_tree", "trainer_state_from_tree",
 ]

@@ -14,7 +14,8 @@ the softmax run in float32, with the casts where ``pita_tpu`` puts them.
 Attention is an explicit einsum, softmax, einsum: the energy loss takes a
 second derivative through it.
 
-The trainer's backbone protocol: ``route`` is always ``"autograd"``,
+The trainer's backbone protocol: ``route`` and ``sampler_route`` are always
+``"autograd"``,
 ``with_route`` returns a copy with the same weights, ``reset_parameters``
 draws flax's initial distributions (lecun-normal kernels, zero biases, unit
 LayerNorm scales, and zeros where flax zeroes). Weights are in
@@ -121,6 +122,7 @@ class DiT3DBackbone(nn.Module):
     """forward(t, x, beta) -> (B, n_particles * n_spatial_dim)."""
 
     route = "autograd"
+    sampler_route = "autograd"
 
     def __init__(self, n_particles: int, n_spatial_dim: int = 3, hidden_size: int = 128,
                  cond_dim: int = 128, n_heads: int = 8, n_blocks: int = 6,

@@ -18,6 +18,16 @@ builds the backbone (``route=``); nothing switches between them on its own:
   second derivative in x and h that the energy losses need, as ``pita_tpu``
   trains through its flax EGNN on XLA and not through the Pallas kernels.
 
+The kernels take 3-D coordinates only, as pita_tpu's Pallas kernels do
+(egnn_fwd.py:125,414); pita_tpu's flax EGNN, and the plain ``layer_step``
+here, take any D. So a backbone of another D (DW4's 2-D) is built on the
+``"autograd"`` route only, and ``sampler_route`` names the route its sampler
+uses, decided by shape: ``"kernels"`` in 3-D, ``"autograd"`` otherwise.
+
+``atom_types`` (one integer per particle) appends their one-hot to the
+node features before the embedding (pita_tpu/nets/egnn.py:133-140), so the
+layers see the same F.
+
 Weights keep the JAX (in, out) layout. They are loaded from a flax
 checkpoint through ``pita_torch.io.flax_params.egnn_params_from_tree``, or
 drawn from flax's initial distributions by ``reset_parameters``.
@@ -113,10 +123,15 @@ class EGNNBackbone(nn.Module):
     def __init__(self, n_particles: int, n_spatial_dim: int = 3, hidden_nf: int = 32,
                  n_layers: int = 3, attention: bool = True, tanh: bool = True,
                  condition_on_temperature: bool = True, coords_range: float = 15.0,
-                 compute_dtype=torch.float32, route: str = "kernels"):
+                 compute_dtype=torch.float32, route: str = "kernels", atom_types=None):
         super().__init__()
-        if n_spatial_dim != 3:
-            raise ValueError("the EGCL kernels take 3D coordinates")
+        if route == "kernels" and n_spatial_dim != 3:
+            raise ValueError(
+                f"the EGCL kernels take 3-D coordinates, not {n_spatial_dim}-D (as pita_tpu's "
+                "Pallas kernels do); build a backbone of another D on the 'autograd' route, "
+                "its sampler_route")
+        self.sampler_route = "kernels" if n_spatial_dim == 3 else "autograd"
+        self.atom_types = None if atom_types is None else tuple(int(a) for a in atom_types)
         self.n_particles = n_particles
         self.n_spatial_dim = n_spatial_dim
         self.hidden_nf = hidden_nf
@@ -125,6 +140,8 @@ class EGNNBackbone(nn.Module):
         self.condition_on_temperature = condition_on_temperature
         self.route = route
         n_in = 2 if condition_on_temperature else 1
+        if self.atom_types is not None:
+            n_in += max(self.atom_types) + 1
         trainable = route == "autograd"
         self.w_emb = nn.Parameter(torch.zeros(n_in, hidden_nf), requires_grad=trainable)
         self.b_emb = nn.Parameter(torch.zeros(hidden_nf), requires_grad=trainable)
@@ -135,7 +152,8 @@ class EGNNBackbone(nn.Module):
         self._args = dict(n_particles=n_particles, n_spatial_dim=n_spatial_dim,
                           hidden_nf=hidden_nf, n_layers=n_layers, attention=attention,
                           tanh=tanh, condition_on_temperature=condition_on_temperature,
-                          coords_range=coords_range, compute_dtype=compute_dtype)
+                          coords_range=coords_range, compute_dtype=compute_dtype,
+                          atom_types=self.atom_types)
 
     def reset_parameters(self, generator=None):
         """flax's initial distributions (pita_tpu/nets/egnn.py): the
@@ -158,13 +176,18 @@ class EGNNBackbone(nn.Module):
         return new
 
     def embed(self, t, x, beta):
-        """The node embedding h0 (B, N, F) of time and inverse temperature."""
+        """The node embedding h0 (B, N, F) of time, inverse temperature and
+        the atom types' one-hot."""
         B, N = x.shape[0], self.n_particles
         t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(-1).expand(B)
         feats = [t[:, None, None].expand(B, N, 1)]
         if self.condition_on_temperature:
             bb = torch.as_tensor(beta, dtype=x.dtype, device=x.device).reshape(-1).expand(B)
             feats.append(bb[:, None, None].expand(B, N, 1))
+        if self.atom_types is not None:
+            types = torch.as_tensor(self.atom_types, device=x.device)
+            onehot = torch.nn.functional.one_hot(types, max(self.atom_types) + 1)
+            feats.append(onehot.to(x.dtype).expand(B, N, -1))
         return torch.cat(feats, dim=-1) @ self.w_emb + self.b_emb
 
     def forward(self, t, x, beta):

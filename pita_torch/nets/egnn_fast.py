@@ -43,8 +43,6 @@ def egnn_apply(backbone, t, x_flat, beta, with_acts: bool = False):
     """Forward of ``EGNNBackbone`` in plain torch, optionally returning what
     the tangent operators need: (edge_attr, diff0, mask, coords_range,
     layer weights, layer activations, xs)."""
-    if getattr(backbone, "atom_types", None) is not None:
-        raise NotImplementedError("atom_types are not ported to the fast divergence path")
     B = x_flat.shape[0]
     N, D = backbone.n_particles, backbone.n_spatial_dim
     xs = x_flat.reshape(B, N, D)
@@ -346,9 +344,15 @@ def score_divergence_fast(score_wrapper, ht, x, beta, tangent_chunk: int = None,
     (the materialized operators G are (B, N, N, F, F)). ``tangent_kernel``
     takes the trace from ``egnn_jacobian_trace_fused`` (kernel K4 on CUDA),
     ``g_kernel`` from the operator route with kernel K5; with both off it is
-    the materialized-G route.
+    the materialized-G route. The two kernel routes take 3-D coordinates
+    only (no kernel exists for 2-D in either package) and raise on another D;
+    the materialized-G route takes any D.
     """
     B, dim = x.shape
+    if (tangent_kernel or g_kernel) and score_wrapper.backbone.n_spatial_dim != 3:
+        raise ValueError("the K4 and K5 routes of the exact trace take 3-D coordinates; "
+                         "take the materialized-G route (both switches off) for "
+                         f"{score_wrapper.backbone.n_spatial_dim}-D")
     ht = bcast(ht, B, x)
     c_s, c_in, c_out, c_noise = coeffs(ht)
     backbone = score_wrapper.backbone

@@ -3,8 +3,9 @@
 Counterpart of ``pita_tpu/nets/ema.py:21-29``: shadow weights with the
 warmup decay ``min(decay, (1+n)/(10+n))``, updated after every optimizer
 step and used for evaluation. The shadow is a backbone of its own on the
-``"kernels"`` route, so the sampler runs it through the CUDA kernels; the
-update writes its weights in place, which bumps their versions and makes the
+route the backbone's sampler uses (``sampler_route``: ``"kernels"`` for a
+3-D EGNN, so the sampler runs it through the CUDA kernels); the update
+writes its weights in place, which bumps their versions and makes the
 layers repack their kernel buffers (``EGCL.packed``) at the next use.
 """
 
@@ -16,7 +17,7 @@ class EMA:
     """Shadow weights (``module``) and the number of updates so far."""
 
     def __init__(self, net, num_updates: int = 0):
-        self.module = net.with_route("kernels")
+        self.module = net.with_route(net.sampler_route)
         self.num_updates = num_updates
 
     def decay_at(self, n: int, decay: float) -> float:

@@ -257,6 +257,8 @@ def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 16
     the kernel taking ``tangent_chunk`` of them. The mean-free projection and
     the pick of the diagonal are plain torch.
     """
+    if backbone.n_spatial_dim != 3:
+        raise ValueError("the layer tangent kernel (K4) takes 3-D coordinates")
     B = x_flat.shape[0]
     N, F = backbone.n_particles, backbone.hidden_nf
     D = N * 3

@@ -1,3 +1,4 @@
+from pita_torch.sampler.cnf import CNFResult, cnf_nll
 from pita_torch.sampler.integrator import (
     GeneratorDraws,
     IntegrateResult,
@@ -9,10 +10,12 @@ from pita_torch.sampler.integrator import (
 from pita_torch.sampler.terms import SDETerms, compute_sde_terms
 
 __all__ = [
+    "CNFResult",
     "GeneratorDraws",
     "IntegrateResult",
     "IntegratorConfig",
     "SDETerms",
+    "cnf_nll",
     "compute_sde_terms",
     "integrate_sde",
     "mala",

@@ -39,7 +39,10 @@ class IntegratorConfig:
     this path reads (configs/model/energytemp.yaml:72-87 defaults).
 
     ``divergence_mode``: "exact" (Jacobian trace; EGNN backbones take the
-    edge-operator route), "exact_generic" (D VJPs) or "hutchinson".
+    edge-operator route), "exact_generic" (D VJPs), "hutchinson" or
+    "hutchpp" (``hutchpp_rank`` sketch vectors and ``hutchinson_probes``
+    residual probes). ``pin_energy`` pins the energy net to the target's
+    ``log_prob`` near t = 0, in the drift and in the final resample.
     ``divergence_chunk_size`` chains and ``divergence_tangent_chunk`` tangents
     are in flight at a time in the exact modes. ``divergence_g_kernel`` takes
     the dominant contraction of the edge-operator route from the G-operator
@@ -68,6 +71,7 @@ class IntegratorConfig:
     adaptive_mcmc: bool = True
     should_mean_free: bool = True
     debias_inference: bool = True
+    pin_energy: bool = False
     divergence_mode: str = "exact"
     divergence_chunk_size: Optional[int] = None
     divergence_tangent_chunk: Optional[int] = None
@@ -75,6 +79,7 @@ class IntegratorConfig:
     divergence_tangent_kernel: bool = False
     kernel_tangent_chunk: int = 16
     hutchinson_probes: int = 1
+    hutchpp_rank: int = 16
     weight_clip_quantile: float = 0.9
     ess_resampling_threshold: Optional[float] = None
     divergence_update_interval: int = 1
@@ -95,9 +100,10 @@ class GeneratorDraws:
     """The sampler's random numbers from one ``torch.Generator``.
 
     Each method is called once per use, in sampler order: ``noise`` and
-    ``resample_u0`` every step, ``probes`` on steps that recompute a
-    Hutchinson divergence, ``end_u0`` once, ``descent_noise`` per Langevin descent step,
-    ``mala_noise`` and ``mala_uniform`` per MALA step.
+    ``resample_u0`` every step, ``probes`` (or ``hutchpp_probes``) on steps
+    that recompute a Hutchinson (Hutch++) divergence, ``end_u0`` once,
+    ``descent_noise`` per Langevin descent step, ``mala_noise`` and
+    ``mala_uniform`` per MALA step.
     """
 
     def __init__(self, generator: torch.Generator):
@@ -116,6 +122,10 @@ class GeneratorDraws:
     def probes(self, step, num_probes, shape):
         r = torch.randint(0, 2, (num_probes, *shape), generator=self.gen, device=self.device)
         return r.to(torch.float32) * 2 - 1
+
+    def hutchpp_probes(self, step, rank, num_probes, shape):
+        """(S (rank, *shape), G (num_probes, *shape)), Rademacher."""
+        return self.probes(step, rank, shape), self.probes(step, num_probes, shape)
 
     def resample_u0(self, step):
         return self._rand(())
@@ -185,9 +195,12 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
         t = times[i].expand(B)
         override = div_c if carry_div and not rediv[i] else None
         probes = None
-        if (weights_on and override is None and cfg.debias_inference
-                and cfg.divergence_mode == "hutchinson"):
-            probes = draws.probes(i, cfg.hutchinson_probes, (B, D))
+        if weights_on and override is None and cfg.debias_inference:
+            if cfg.divergence_mode == "hutchinson":
+                probes = draws.probes(i, cfg.hutchinson_probes, (B, D))
+            elif cfg.divergence_mode == "hutchpp":
+                probes = draws.hutchpp_probes(i, cfg.hutchpp_rank, cfg.hutchinson_probes,
+                                              (B, D))
         terms = compute_sde_terms(
             score_wrapper, energy_wrapper, noise_schedule, annealing_schedule, t, x, beta,
             debias=cfg.debias_inference, compute_weights=weights_on,
@@ -197,7 +210,8 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
             divergence_g_kernel=cfg.divergence_g_kernel,
             divergence_tangent_kernel=cfg.divergence_tangent_kernel,
             kernel_tangent_chunk=cfg.kernel_tangent_chunk,
-            probes=probes, div_bt_override=override,
+            probes=probes, div_bt_override=override, pin_energy=cfg.pin_energy,
+            energy_function=target.log_prob if cfg.pin_energy else None,
         )
         div_new = terms.divergence if terms.divergence is not None else div_c
         noise = draws.noise(i, (B, D))
@@ -235,8 +249,10 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
         # final resample against the true target, the learned energy as the
         # proposal log-density (sde_integration.py:158-184)
         t_end = times[min(cfg.end_resampling_step, n - 1)].expand(B)
+        pin_kw = (dict(pin=True, t=t_end, energy_function=target.log_prob)
+                  if cfg.pin_energy else {})
         with torch.no_grad():
-            model_energy = energy_wrapper.energy(noise_schedule.h(t_end), x, beta)
+            model_energy = energy_wrapper.energy(noise_schedule.h(t_end), x, beta, **pin_kw)
         logq0 = -model_energy * annealing_schedule.gamma(t_end)
         a_end = target.log_prob(x) - logq0 + a
         a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))

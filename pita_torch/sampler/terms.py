@@ -16,9 +16,15 @@ CUDA). div(b_t) = div(s_θ)·g²/2 by ``divergence_mode``:
   materialized (default), through the G-operator kernel K5
   (``divergence_g_kernel``) or in forward mode through the layer tangent
   kernel K4 (``divergence_tangent_kernel``); any other backbone falls to
-- ``"exact_generic"``: D VJPs through the score function.
+- ``"exact_generic"``: D VJPs through the score function;
+- ``"hutchpp"``: Hutch++ in forward mode on the score net's ``"autograd"``
+  route (``ScoreWrapper.on_autograd_route``).
 
-``"hutchpp"`` and the score-free Laplacian are not ported.
+With no score network b_t = −∇ₓU·g²/2 and div(b_t) = −ΔU·g²/2, the exact
+Laplacian of the energy net's ``"autograd"`` route (terms.py:203-212). With
+``pin_energy`` the energy is pinned to the target's ``energy_function``
+(its ``log_prob``) by (1−t)³ at the step's time t (``pin_kw``, :115), in
+every evaluation of U here: t enters the pin as a constant, as in pita_tpu.
 """
 
 from typing import NamedTuple, Optional
@@ -27,7 +33,14 @@ import torch
 
 from pita_torch.nets.egnn_fast import score_divergence_fast, supports_fast_divergence
 from pita_torch.nets.precondition import bcast
-from pita_torch.ops.divergence import exact_divergence, hutchinson_divergence
+from pita_torch.ops.divergence import (exact_divergence, exact_laplacian,
+                                       hutchinson_divergence, hutchpp_divergence)
+
+
+def _autograd_route(wrapper):
+    """The wrapper on its backbone's ``"autograd"`` route; an oracle without
+    a backbone is differentiable as it is."""
+    return wrapper.on_autograd_route() if hasattr(wrapper, "on_autograd_route") else wrapper
 
 
 class SDETerms(NamedTuple):
@@ -46,12 +59,15 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
                       divergence_g_kernel: bool = False,
                       divergence_tangent_kernel: bool = False,
                       kernel_tangent_chunk: int = 16,
-                      probes: Optional[torch.Tensor] = None,
-                      div_bt_override: Optional[torch.Tensor] = None) -> SDETerms:
+                      probes=None,
+                      div_bt_override: Optional[torch.Tensor] = None,
+                      pin_energy: bool = False, energy_function=None) -> SDETerms:
     """drift_X and drift_A at times t (B,) for chains x (B, D).
 
-    ``probes`` (P, B, D): the Rademacher vectors of the Hutchinson estimate,
-    needed in that mode unless ``div_bt_override`` supplies div(b_t).
+    ``probes``: the Rademacher vectors of the estimate, needed in the
+    Hutchinson modes unless ``div_bt_override`` supplies div(b_t): (P, B, D)
+    for ``"hutchinson"``, the pair (S (rank, B, D), G (P, B, D)) for
+    ``"hutchpp"``.
     ``divergence_chunk_size`` chains and ``divergence_tangent_chunk`` tangents
     are in flight at a time in the exact modes; ``kernel_tangent_chunk``
     tangents go to one block of kernel K4.
@@ -68,10 +84,11 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
             s_t = score_wrapper.score(ht, x, beta)
         return SDETerms(gamma[:, None] * s_t * g2[:, None], torch.zeros_like(t))
 
+    pin_kw = dict(pin=True, t=t, energy_function=energy_function) if pin_energy else {}
     with torch.enable_grad():
         xx = x.detach().requires_grad_(True)
         tt = t.detach().requires_grad_(True)
-        U = energy_wrapper.energy(noise_schedule.h(tt), xx, beta)
+        U = energy_wrapper.energy(noise_schedule.h(tt), xx, beta, **pin_kw)
         nabla_U, dU_dt = torch.autograd.grad(U.sum(), (xx, tt))
     U = U.detach()
 
@@ -104,12 +121,19 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
             score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
             div_st = exact_divergence(score_fn, t, x, chunk_size=divergence_chunk_size)
         div_bt = div_st * g2 / 2
+    elif has_score and divergence_mode == "hutchpp":
+        if probes is None:
+            raise ValueError("hutchpp divergence needs probes (S, G)")
+        twin = _autograd_route(score_wrapper)
+        score_fn = lambda tq, xq: twin.score(noise_schedule.h(tq), xq, beta)
+        div_bt = hutchpp_divergence(score_fn, t, x, *probes) * g2 / 2
+    elif has_score:
+        raise ValueError(f"unknown divergence_mode {divergence_mode!r}")
     else:
-        raise NotImplementedError(
-            f"divergence_mode={divergence_mode!r} with"
-            f"{'' if has_score else 'out'} a score network is not ported "
-            "(hutchpp, and the exact Laplacian of the score-free path)"
-        )
+        twin = _autograd_route(energy_wrapper)
+        U_fn = lambda tq, xq: twin.energy(noise_schedule.h(tq), xq, beta, **pin_kw)
+        lap_U = exact_laplacian(U_fn, t, x, chunk_size=divergence_chunk_size)
+        div_bt = -lap_U * g2 / 2
 
     inner = (-nabla_U * bt).sum(-1)
     drift_A = (

@@ -1,8 +1,8 @@
-"""Data augmentation: random SO(3) rotations and CoM jitter.
+"""Data augmentation: random SO(d) rotations and CoM jitter.
 
 Counterpart of ``pita_tpu/train/augment.py:14-45``: uniform rotations from
-the QR factorization of Gaussian 3×3 matrices (signs fixed so R's diagonal
-is positive and det = +1), applied to coordinates and forces alike, and a
+the QR factorization of Gaussian d×d matrices (d = 3, or 2 for DW4; signs
+fixed so R's diagonal is positive and det = +1), applied to coordinates and forces alike, and a
 Gaussian CoM shift of σ = 1/sqrt(N·d). Each function takes its standard
 normal draw as an argument (the trainer draws it, a test replays JAX's).
 """

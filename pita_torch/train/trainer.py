@@ -5,8 +5,9 @@ Counterpart of ``pita_tpu/train/trainer.py`` (``fill_with_quality_floor``
 
 - twin score and energy backbones on the ``"autograd"`` route (the energy
   net starts as a copy of the score net, :305-307) with EMA shadows on the
-  ``"kernels"`` route, which the sampler runs: the EGNN, or the DiT3D of the
-  peptide presets, whose one route serves both;
+  route the backbone names as its ``sampler_route``, which the sampler runs:
+  ``"kernels"`` for a 3-D EGNN, ``"autograd"`` for a 2-D one (DW4), the
+  MLP (GMM), TorchMD-ET and the DiT3D of the peptide presets;
 - a per-rung replay buffer, seeded from the rung-0 train set or the prior;
 - the ladder: the active rung from the epoch by the cumulative
   ``num_epochs_per_temp``;
@@ -454,12 +455,13 @@ class EnergyTempTrainer:
     def _eval_wrappers(self):
         """The nets that sample (pita_tpu's ``_eval_params``, :621-625, which
         returns their weights): the EMA shadows or frozen copies of the
-        trained weights, on the kernel route."""
+        trained weights, on the backbone's ``sampler_route``."""
         pb = self.cfg.precondition_beta
         if self.cfg.ema_decay > 0 and self.cfg.eval_ema:
             s, e = self.ema_score.module, self.ema_energy.module
         else:
-            s, e = self.score_net.with_route("kernels"), self.energy_net.with_route("kernels")
+            route = self.score_net.sampler_route
+            s, e = self.score_net.with_route(route), self.energy_net.with_route(route)
         return ScoreWrapper(s, precondition_beta=pb), EnergyWrapper(e, precondition_beta=pb)
 
     def _integrate(self, x1, nets, anneal, target, beta, cfg):
@@ -648,8 +650,8 @@ class EnergyTempTrainer:
 
     def _make_eval_plots(self, res, res_nores, target, samples, energies, data):
         """The reference's evaluation figures under out_dir/plots/epoch_<n>
-        (trainer.py:1066-1092), with the Ramachandran plot of a target that
-        has dihedrals; needs matplotlib."""
+        (trainer.py:1066-1092): the GMM's contours for the gmm target, the
+        Ramachandran plot of a target that has dihedrals; needs matplotlib."""
         from pita_torch.io import plotting as P
 
         pdir = os.path.join(self.out_dir, "plots", f"epoch_{self.epoch}")
@@ -658,6 +660,8 @@ class EnergyTempTrainer:
                                      not_resampled_energies=target.log_prob(res_nores.samples))
             if self.is_molecule:
                 P.plot_interatomic_distances(target, samples, data, pdir)
+        if getattr(target, "name", "") == "gmm":
+            P.plot_gmm_contours(target, samples, pdir)
         if hasattr(target, "dihedrals"):
             phi, psi = target.dihedrals(samples)
             P.plot_ramachandran(phi, psi, pdir, temperature=target.temperature)

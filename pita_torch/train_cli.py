@@ -5,6 +5,7 @@ overlay, a YAML overlay and the overrides, build the trainer, ``fit``, then
 ``test`` from the saved checkpoint; or run several such trainings. Hydra-style
 arguments:
 
+    python -m pita_torch.train_cli                  # experiment=gmm, as in pita_tpu
     python -m pita_torch.train_cli experiment=lj55
     python -m pita_torch.train_cli experiment=lj13 debug=short device=cpu out_dir=/tmp/run
     python -m pita_torch.train_cli experiment=lj13 config=overlay.yaml
@@ -110,7 +111,7 @@ def main(argv=None):
         return multirun([a for a in argv if a not in ("-m", "--multirun")])
     from pita_torch.configs import build_trainer, compose, parse_overrides
 
-    flags = dict(experiment="lj13", debug=None, config=None, ckpt_path=None, test="true",
+    flags = dict(experiment="gmm", debug=None, config=None, ckpt_path=None, test="true",
                  time_checkpoint_seconds=None, name_suffix=None, device=None)
     overrides = {}
     for a in argv:

@@ -174,6 +174,10 @@ def test_supports_fast_divergence_and_atom_types():
     _, _, bb, t, x, beta = _setup()
     assert tf.supports_fast_divergence(bb)
     assert not tf.supports_fast_divergence(torch.nn.Linear(3, 3))
-    bb.atom_types = (0, 1, 1, 2, 0)
-    with pytest.raises(NotImplementedError, match="atom_types"):
-        tf.egnn_apply(bb, torch.as_tensor(t), torch.as_tensor(x), beta)
+    # atom types: their one-hot joins the node features before the embedding
+    typed = EGNNBackbone(5, hidden_nf=16, n_layers=2, atom_types=(0, 1, 1, 2, 0))
+    typed.reset_parameters(torch.Generator().manual_seed(0))
+    assert typed.w_emb.shape[0] == 2 + 3
+    got = tf.egnn_apply(typed, torch.as_tensor(t), torch.as_tensor(x), beta)
+    np.testing.assert_array_equal(got.numpy(),
+                                  typed(torch.as_tensor(t), torch.as_tensor(x), beta).numpy())

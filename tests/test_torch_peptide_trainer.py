@@ -89,8 +89,15 @@ def test_presets_build_on_the_cpu_and_need_a_gpu_otherwise(name, tmp_path, monke
 
 
 def test_torchmd_et_is_not_ported():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        build_trainer(compose("aldp", overrides={"net": {"kind": "torchmd_et"}}), device="cpu")
+    """TorchMD-ET is ported: net kind torchmd_et builds behind the aldp
+    preset (22 atoms); an unknown net kind is refused."""
+    from pita_torch.nets import TorchMDETBackbone
+
+    tr = build_trainer(compose("aldp", overrides={"net": {"kind": "torchmd_et"}}),
+                       device="cpu")
+    assert isinstance(tr.score_net, TorchMDETBackbone) and tr.score_net.n_particles == 22
+    with pytest.raises(ValueError, match="unknown net kind"):
+        build_trainer(compose("aldp", overrides={"net": {"kind": "nope"}}), device="cpu")
 
 
 def _jax_epoch_draws(jtr):

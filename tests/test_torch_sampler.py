@@ -231,10 +231,14 @@ def test_compute_sde_terms_refuses_unported_modes():
     args = (ElucidatingNoiseSchedule(sigma_min=0.05, sigma_max=10.0),
             ConstantAnnealingSchedule(annealing_factor=1.2), torch.full((2,), 0.5),
             torch.zeros(2, 39) + torch.arange(39.0) * 0.1, 1.0)
-    with pytest.raises(NotImplementedError, match="hutchpp"):
+    # Hutch++ and the score-free Laplacian are ported: hutchpp needs its
+    # probes, an unknown mode is refused, the score-free path runs
+    with pytest.raises(ValueError, match="probes"):
         compute_sde_terms(ScoreWrapper(bs), EnergyWrapper(be), *args, divergence_mode="hutchpp")
-    with pytest.raises(NotImplementedError, match="Laplacian"):
-        compute_sde_terms(None, EnergyWrapper(be), *args, divergence_mode="exact")
+    with pytest.raises(ValueError, match="unknown divergence_mode"):
+        compute_sde_terms(ScoreWrapper(bs), EnergyWrapper(be), *args, divergence_mode="nope")
+    terms = compute_sde_terms(None, EnergyWrapper(be), *args, divergence_mode="exact")
+    assert torch.isfinite(terms.drift_A).all() and torch.isfinite(terms.divergence).all()
 
 
 class NoProbes(JaxDraws):
