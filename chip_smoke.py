@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LJ55 sampling and training paths, its alanine-peptide
-path and its GMM, DW4 and other single-GPU presets on one NVIDIA GPU (H100).
+path, its GMM, DW4 and other presets, its sharded and data-parallel paths and
+FAB on one NVIDIA GPU (H100).
 
 Usage, from the root of the repository on a machine with a CUDA card:
 
@@ -72,12 +73,13 @@ Phases, each printing lines, each failing the run on disagreement:
  11. the LJ55 training ladder through pita_torch.configs.build_trainer (the
      lj55 preset: N = 55, hidden 32, 3 layers, f32): the rung-0 train set by
      generate_lj_dataset (512 chains, 12,000 warmup steps; K1 must launch,
-     the first K1 never), then the same generator timed by each K1 in turns,
-     2 epochs x 25 batches of 256 on the autograd route (finite losses, no
-     kernel launched, one step on the card against the same step on the CPU
-     at batch 64, and the EMA's kernel buffers repacked), one rung
-     transition's fill by evaluate through the K4 route (256 chains x 100
-     steps; the f32 K1, K2, K3 and K4 must launch and no tensor-core kernel;
+     the first K1 never), then the same generator with a 4,000-step warmup
+     timed by each K1 in turns, 2 epochs x 25 batches of 256 on the
+     autograd route (finite losses, no kernel launched, one step on the
+     card against the same step on the CPU at batch 64, and the EMA's
+     kernel buffers repacked), one rung transition's fill by evaluate
+     through the K4 route (256 chains x 100 steps; the f32 K1, K2, K3 and
+     K4 must launch and no tensor-core kernel;
      finite weights and energies; the rung-1 buffer filled; no escalated
      retry), K1 and the f32 K2/K3/K4 compared and timed at those launches
      (K1's device time also by torch.profiler, which must find it), a fill
@@ -110,7 +112,7 @@ Phases, each printing lines, each failing the run on disagreement:
      same normals (1e-4 nm); the aldp ladder through build_trainer and fit
      at the preset's full DiT3D width on train/val/test sets written by the
      port's MD (2 epochs x 10 batches of 2,048, one transition 1,200 ->
-     755.95 K filled at 512 chains x 100 steps with the exact trace by D
+     755.95 K filled at 512 chains x 50 steps with the exact trace by D
      VJPs and 5 MALA steps): finite losses and val/rama, val/tica, val/ic
      metrics and chirality rates, the rung-1 buffer filled, none of the
      five kernels launched; a float32 step on the card against the CPU at
@@ -123,7 +125,7 @@ Phases, each printing lines, each failing the run on disagreement:
      runs of tests/test_annealing_oracle.py (GMM-40 annealed to the exact
      p², 2,048 chains x 1,000 steps; exact, hutchinson + 30 MALA,
      hutchinson with ESS 0.5, hutch_ess_k10, hutchpp) held to that test's
-     bounds against exact draws of p², then hutch_ess_k10 over 8 more seeds
+     bounds against exact draws of p², then hutch_ess_k10 over 4 more seeds
      with the count of far-off samples; on the LJ55 bench pair Hutch++ at
      rank 165 against the edge-operator trace, a hutchpp run (rank 16, 256
      chains x 20 steps; K2 and K3 launch, K4 and K5 not), the score-free
@@ -135,6 +137,21 @@ Phases, each printing lines, each failing the run on disagreement:
      CPU; TorchMD-ET's forward at 2,048 LJ55 configurations and train_cli
      experiment=lj13 net.kind=torchmd_et; cnf_nll on a Gaussian against the
      closed form and on the GMM oracle card against CPU.
+ 15. pita_torch.parallel over NCCL at world size 1 (the one card; 2 and 4
+     ranks are held against one process under gloo in the CPU tests) and
+     FAB: sharded_integrate on the bench pair against integrate_sde with the
+     same seed, hutch_ess_k10 at 2,048 chains x 100 steps timed in turns and
+     512 x 100 with the final resample and 30 MALA steps, each pair bitwise
+     equal with equal launches (K2, K3 and K1; no scalar, yardstick or
+     exact-divergence kernel), and what one NCCL collective costs; one
+     make_dp_train_step of the lj55 preset at batch 256 against the
+     trainer's train_step on the same draws (1e-6 of the largest weight
+     change) and both timed; ShardedBufferOps against the plain buffer at
+     the preset's capacity; AIS to a normalized Gaussian at 2,048 chains
+     (|log Z| < 0.1); FAB at pita_tpu's defaults on ManyWell-32: an inner
+     step card against CPU, AIS calls and inner steps timed, 50 outer
+     iterations of train_fab_with_prioritised_buffer, and AIS's log Z from
+     the trained flow beside the exact one by quadrature.
 
 Then one JSON line with every kernel's launches, error, times and bound,
 and last {"ok": true, "device": {...}}. Any failure exits non-zero. TF32 is
@@ -144,9 +161,9 @@ Options for measurement runs: --kernels-only runs phases 1-3, 6 and 7 only;
 --training-only runs phases 1 and 11 only; --tools-only runs phases 1 and
 12 only (eval_cli then restores the DEM trainer's checkpoint);
 --peptides-only runs phases 1 and 13 only; --oracle-only runs phases 1
-and 14 only; --outlier-seed S follows phase 5's quality run at seed S
-through the final resample and MALA, K1 against the plain float64 energy at
-every state, and stops;
+and 14 only; --parallel-fab-only runs phases 1 and 15 only; --outlier-seed
+S follows phase 5's quality run at seed S through the final resample and
+MALA, K1 against the plain float64 energy at every state, and stops;
 --profile adds a torch.profiler breakdown of each timed main path (for the
 K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
@@ -1328,28 +1345,32 @@ class _FirstK1:
 
 def train_set_in_turns(target):
     """The rung-0 train set's generator (seed 101, 10,000 samples, 512
-    chains) by each K1 in turns, first, new, new, first: seconds and
-    launches. The MALA step's host time around K1 sets its pace."""
+    chains), its warmup cut from 12,000 MALA steps to 4,000, by each K1 in
+    turns, first, new, new, first: seconds and launches. The MALA step's
+    host time around K1 sets its pace."""
     import torch
 
     from pita_torch.baselines.mcmc import generate_lj_dataset
     from pita_torch.ops import lj as ljop
 
     secs = {"first": [], "new": []}
+    # relax 2,000 + warmup 4,000 + 2 chunk starts + the health check + 20
+    # rounds of 200 steps + 20 round starts
+    want = 10023
     for which in ("first", "new", "new", "first"):
         before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         generate_lj_dataset(_FirstK1(target) if which == "first" else target, 10000, seed=101,
-                            device="cuda")
+                            warmup=4000, device="cuda")
         torch.cuda.synchronize()
         secs[which].append(time.perf_counter() - t0)
         n = (ljop.lj_log_prob_and_force.launches - before[0], ljop._lj_scalar.launches - before[1])
-        if n != ((0, 18027) if which == "first" else (18027, 0)):
+        if n != ((0, want) if which == "first" else (want, 0)):
             fail(f"the train set by the {which} K1 launched (new, first) = {n} K1s")
-    print("[phase 11] train set by each K1 in turns (first, new, new, first; 18,027 launches "
-          "each): " + ", ".join(f"{w} {' / '.join(f'{v:.2f}' for v in secs[w])} s"
-                                for w in secs))
+    print(f"[phase 11] train set, 4,000 warmup steps, by each K1 in turns (first, new, new, "
+          f"first; {want:,} launches each): "
+          + ", ".join(f"{w} {' / '.join(f'{v:.2f}' for v in secs[w])} s" for w in secs))
 
 
 def layer0_inputs(tr, x_flat):
@@ -2226,8 +2247,8 @@ def aldp_train_cfg(tmp, data_dir, **kw):
     """The aldp preset at its full width (DiT3D hidden 128, cond 128, 8
     heads, 6 blocks, bf16 block stack), cut in count only: 2 epochs of 10
     batches of 2,048, then one rung transition 1,200 -> 755.95 K filled at
-    512 chains x 100 steps (the preset's exact mode: D VJPs for the DiT;
-    resampling to step 80 of 100 as 800 of 1,000) with its 5 adaptive MALA
+    512 chains x 50 steps (the preset's exact mode: D VJPs for the DiT;
+    resampling to step 40 of 50 as 800 of 1,000) with its 5 adaptive MALA
     steps and no escalated retry."""
     from pita_torch.configs import compose
 
@@ -2237,8 +2258,8 @@ def aldp_train_cfg(tmp, data_dir, **kw):
         "trainer.num_epochs_per_temp": (2, 200, 200),
         "trainer.num_temp_annealed_samples": 512,
         "trainer.transition_fill_max_retries": 0,
-        "integrator.num_integration_steps": 100,
-        "integrator.end_resampling_step": 80,
+        "integrator.num_integration_steps": 50,
+        "integrator.end_resampling_step": 40,
         "logger": ("csv",), **kw})
 
 
@@ -2305,7 +2326,8 @@ def phase_peptide_ladder(kernels, tmp, data_dir):
     print(f"[phase 13] fit, 2 epochs x {cfg.trainer.n_train_batches_per_epoch} steps and the "
           f"transition fill: {t_fit:.2f} s; training {step_ms:.1f} ms a step (the first epoch "
           f"{1e3 * times['train'][0] / (n_steps // 2):.1f}); fill {t_fill:.2f} s (512 chains x "
-          f"100 steps and the 512-chain pass without resampling, {1e3 * t_fill / n_fill:.1f} ms "
+          f"{n_fill // 2} steps and the 512-chain pass without resampling, "
+          f"{1e3 * t_fill / n_fill:.1f} ms "
           f"a step with MALA and the energies); eval hook {t_hook:.2f} s; rung-1 buffer {buf1} "
           f"rows; kernel launches {counts}")
     print("[phase 13] losses by epoch " + "; ".join(
@@ -2514,7 +2536,7 @@ def oracle_run(mode_kw, seed, n_chains=2048):
 
 def phase_oracle_runs(kernels):
     """Phase 14.1: the five oracle runs held to the test's bounds, then
-    hutch_ess_k10 over 8 seeds: the W2 range and the count of far-off
+    hutch_ess_k10 over 4 seeds: the W2 range and the count of far-off
     samples (log-density under p² below the lowest of 2,048 exact draws).
     No kernel may launch."""
     out = {}
@@ -2534,13 +2556,13 @@ def phase_oracle_runs(kernels):
         out[f"{name}_s"] = wall
         out[f"{name}_w2"] = st["w2"]
     w2s, far = [], []
-    for seed in range(1, 9):
+    for seed in range(1, 5):
         st, _ = oracle_run(ORACLE_MODES["hutch_ess_k10"][0], seed=seed)
         w2s.append(st["w2"])
         far.append(st["far"])
-    print(f"[phase 14] hutch_ess_k10 over seeds 1-8: W2 {min(w2s):.3f} to {max(w2s):.3f} "
+    print(f"[phase 14] hutch_ess_k10 over seeds 1-4: W2 {min(w2s):.3f} to {max(w2s):.3f} "
           f"({', '.join(f'{w:.2f}' for w in w2s)}); far-off samples by seed {far}, "
-          f"{sum(far)} of {8 * 2048}")
+          f"{sum(far)} of {4 * 2048}")
     counts = {f.__name__: f.launches for f in kernels}
     if any(counts.values()):
         fail(f"the oracle runs launched a kernel: {counts}")
@@ -2923,6 +2945,369 @@ def phase_oracle(kernels, tmp, wl=None, wl32=None):
     return out
 
 
+# FAB's inner step, card against CPU: the loss, the weight gradients (of
+# the largest) and the buffer's adjusted weights, f32 flows of 8 couplings
+# summed in another order
+TOL_FAB_STEP = 1e-4
+# the weights after that step, in units of the learning rate: the update
+# differs by less than that, and a weight below 0.5 rounds to 6e-8 (6e-4 lr)
+TOL_FAB_WEIGHTS_LR = 1e-3
+TOL_DP = 1e-6  # the data-parallel step against the trainer's, of the largest weight change
+
+
+def nccl_group(tmp):
+    """World size 1 over NCCL, joined through a file store under ``tmp``."""
+    from pita_torch.parallel import make_group
+
+    return make_group(f"file://{os.path.join(tmp, 'nccl_store')}", 1, 0)
+
+
+def same_result(a, b):
+    """Two IntegrateResults bitwise equal (samples, log-weights, ancestor
+    counts, MALA acceptance, term diagnostics)."""
+    import torch
+
+    pairs = [(a.samples, b.samples), (a.logweights, b.logweights),
+             (a.num_unique, b.num_unique), (a.acceptance_rates, b.acceptance_rates)]
+    pairs += [(a.term_stats[k], b.term_stats[k]) for k in a.term_stats]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def phase_sharded_sampling(kernels, wl, group):
+    """Phase 15a: sharded_integrate at world size 1 over NCCL against
+    integrate_sde with the same seed, on the bench pair: hutch_ess_k10 at
+    2,048 chains x 100 steps, timed in turns (unsharded, sharded, sharded,
+    unsharded), and a 512-chain run with the final resample and 30 MALA
+    steps (K1). Each pair must agree bitwise and launch the same kernels."""
+    import torch
+
+    from pita_torch.parallel import sharded_integrate
+    from pita_torch.sampler import integrate_sde
+
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    gen = torch.Generator("cuda").manual_seed(15)
+    x1 = torch.randn(2048, 165, generator=gen, device="cuda") * wl.prior_scale
+    x1q = torch.randn(512, 165, generator=gen, device="cuda") * wl.prior_scale
+    args = (wl.score, wl.energy, wl.noise, wl.anneal, wl.target, 1.0)
+    runs = {
+        "unsharded": lambda x, c: integrate_sde(x, *args, c, seed=2, device="cuda"),
+        "sharded": lambda x, c: sharded_integrate(group, x, *args, c, seed=2),
+    }
+    cfg = hutch_cfg(num_integration_steps=100, end_resampling_step=100)
+    cfg_q = hutch_cfg(num_integration_steps=100, end_resampling_step=90, resample_at_end=True,
+                      post_mcmc_steps=30, adaptive_mcmc=True, dt_negative_time=5e-5)
+    for run in runs.values():  # warm-up
+        run(x1[:256], cfg.replace(num_integration_steps=10, end_resampling_step=10))
+    torch.cuda.synchronize()
+    out = {}
+    for label, x, c, order in (("hutch_ess_k10 2048 x 100", x1, cfg,
+                                ("unsharded", "sharded", "sharded", "unsharded")),
+                               ("512 x 100 + final resample + 30 MALA", x1q, cfg_q,
+                                ("unsharded", "sharded"))):
+        res, walls, launches = {}, {k: [] for k in runs}, {}
+        for name in order:
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            r = runs[name](x, c)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            launches.setdefault(name, counts())
+            res.setdefault(name, r)
+            if launches[name] != counts():
+                fail(f"phase 15: the {name} run's launches changed between its repeats")
+            if not same_result(res[name], r):
+                fail(f"phase 15: the {name} run is not bitwise repeatable")
+        bitwise = same_result(res["unsharded"], res["sharded"])
+        rates = {k: x.shape[0] * c.num_integration_steps / min(v) for k, v in walls.items()}
+        print(f"[phase 15] {label}: unsharded {', '.join(f'{w:.3f}' for w in walls['unsharded'])}"
+              f" s, sharded (NCCL, world 1) {', '.join(f'{w:.3f}' for w in walls['sharded'])} s;"
+              f" best {rates['unsharded']:.1f} / {rates['sharded']:.1f} chain*steps/s "
+              f"(sharding overhead {100 * (rates['unsharded'] / rates['sharded'] - 1):+.2f} %); "
+              f"bitwise equal: {bitwise}; launches unsharded {launches['unsharded']}, sharded "
+              f"{launches['sharded']}")
+        if not bitwise:
+            fail(f"phase 15: the sharded {label} run differs from the unsharded one")
+        if launches["unsharded"] != launches["sharded"]:
+            fail(f"phase 15: the sharded {label} run launches other kernels than the unsharded")
+        ln = launches["sharded"]
+        if not (ln["egnn_layer_forward_tc"] and ln["egnn_layer_backward_tc"]):
+            fail(f"phase 15: the sharded {label} run did not launch K2 and K3 (tensor cores)")
+        if any(ln[k] for k in ("egnn_layer_forward", "egnn_layer_backward", "_contract_scalar",
+                               "_lj_scalar", "egnn_layer_tangent", "egnn_layer_tangent_tc",
+                               "g_operator_contract")):
+            fail(f"phase 15: the sharded {label} run launched a scalar, yardstick or "
+                 f"exact-divergence kernel")
+        if c.post_mcmc_steps and not ln["lj_log_prob_and_force"]:
+            fail("phase 15: MALA in the sharded run did not launch K1")
+        key = "hutch" if c is cfg else "mala"
+        out[f"{key}_rate_unsharded"] = rates["unsharded"]
+        out[f"{key}_rate_sharded"] = rates["sharded"]
+        out[f"{key}_launches"] = ln
+    # what a collective costs: a resampling step of the sharded sampler makes
+    # 7 gathers (the clamp's, the weights', the state's, the carried
+    # divergence's, three diagnostics'), a MALA step 2 all-reduces
+    v, xs = torch.randn(2048, device="cuda"), torch.randn(2048, 165, device="cuda")
+    one = torch.ones((), dtype=torch.int64, device="cuda")
+    for key, label, fn in (
+            ("gather_weights", "all_gather of 2,048 floats", lambda: group.gather_rows(v)),
+            ("gather_state", "all_gather of 2,048 x 165 floats", lambda: group.gather_rows(xs)),
+            ("sum", "all_reduce of one integer", lambda: group.sum(one))):
+        us, ev = host_us(fn, n=500), cuda_ms(fn, reps=200) * 1e3
+        print(f"[phase 15] NCCL at world 1, {label}: {us:.1f} us of host time a call (no "
+              f"synchronization), {ev:.1f} us a call by CUDA events")
+        out[f"nccl_{key}_host_us"], out[f"nccl_{key}_event_us"] = us, ev
+    return out
+
+
+def phase_dp_and_buffer(group, tmp, wl):
+    """Phase 15b: one make_dp_train_step of the lj55 preset (batch 256) at
+    world size 1 against the trainer's train_step with the same draws, then
+    each timed in turns over 5 steps; ShardedBufferOps against the plain
+    buffer at the preset's capacity (adds with masks, the three sampling
+    modes)."""
+    import numpy as np
+    import torch
+
+    from pita_torch.configs import build_trainer
+    from pita_torch.parallel import ShardedBufferOps, make_dp_train_step
+    from pita_torch.train.augment import com_augment, rotate_augment
+    from pita_torch.train.buffer import (buffer_add, buffer_init, buffer_sample, buffer_set,
+                                         buffer_view)
+
+    cfg = lj55_train_cfg(tmp)
+    tr = build_trainer(cfg, device="cuda")
+    x = torch.as_tensor(wl.data_T_low, device="cuda")
+    e, f = tr.targets[0].log_prob_and_force(x)
+    tr.buffers = buffer_set(tr.buffers, 0, buffer_add(buffer_view(tr.buffers, 0), x, e, f))
+    state = tr.state_dict()
+    state.pop("generator")
+    tr2 = build_trainer(cfg, device="cuda")
+    tr2.load_state_dict(state)
+    B, n_p, n_d = cfg.trainer.training_batch_size, tr.n_particles, tr.n_spatial_dim
+    step = make_dp_train_step(group, tr2.score, tr2.energy, tr2.noise_schedule, tr2.loss_cfg,
+                              tr2.lr_at, grad_clip=tr2.cfg.grad_clip, n_particles=n_p,
+                              n_spatial_dim=n_d, mean_free=tr2.mean_free, target=tr2.targets[0])
+    beta = float(tr2.inverse_temperatures[0])
+
+    def dp_step(d):
+        x0, e0, f0, _ = buffer_sample(buffer_view(tr2.buffers, 0), B, idx=d.idx)
+        x0, f0 = rotate_augment(x0, f0, n_p, n_d, normal=d.rot_normal)
+        if not tr2.mean_free:
+            x0 = com_augment(x0, n_p, n_d, normal=d.com_normal)
+        tr2.opt_state, scalars, g_norm = step(tr2.opt_state, x0, e0, f0, beta, d.loss)
+        return scalars, g_norm
+
+    before = [p.detach().clone() for p in tr.params]
+    d = tr.draw_step(0)
+    aux, gn = tr.train_step(0, draws=d)
+    aux2, gn2 = dp_step(d)
+    change = max(float((p.detach() - b).abs().max()) for p, b in zip(tr.params, before))
+    err = max(float((p.detach() - q.detach()).abs().max()) for p, q in zip(tr.params, tr2.params))
+    loss_err = max(abs(float(aux[k]) - float(aux2[k])) / max(abs(float(aux[k])), 1e-30)
+                   for k in aux)
+    gn_err = abs(float(gn) - float(gn2)) / float(gn)
+    walls = {"trainer": [], "dp": []}
+    for name in ("trainer", "dp", "dp", "trainer"):
+        ms = []
+        for _ in range(5):
+            d = tr.draw_step(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(0, draws=d) if name == "trainer" else dp_step(d)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        walls[name] += ms
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[phase 15] lj55 make_dp_train_step (NCCL, world 1) against the trainer's "
+          f"train_step, batch {B}, same draws: largest weight change {change:.3e}, max weight "
+          f"gap {err:.3e} = {err / change:.2e} of it (tol {TOL_DP}); losses max rel err "
+          f"{loss_err:.2e}, gradient norm rel err {gn_err:.2e}; a step: trainer median "
+          f"{med['trainer']:.2f} ms, DP {med['dp']:.2f} ms (10 each, in turns)")
+    if not err <= TOL_DP * change:
+        fail("phase 15: the data-parallel step disagrees with the trainer's step")
+
+    cap, dim = tr.cfg.buffer_capacity, tr.dim
+    ops = ShardedBufferOps(group)
+    ref, shb = buffer_init(cap, dim, "cuda"), ops.place(buffer_init(cap, dim, "cuda"))
+    g = torch.Generator("cuda").manual_seed(3)
+    for _ in range(3):
+        xs = torch.randn(4096, dim, generator=g, device="cuda")
+        es = torch.randn(4096, generator=g, device="cuda")
+        fs = torch.randn(4096, dim, generator=g, device="cuda")
+        ref = buffer_add(ref, xs, es, fs, mask=es < 1.0)
+        shb = ops.add(shb, xs, es, fs, mask=es < 1.0)
+    same = (torch.equal(ref.x, shb.x) and torch.equal(ref.energy, shb.energy)
+            and torch.equal(ref.force, shb.force) and (ref.pos, ref.size) == (shb.pos, shb.size))
+    for prioritize, replacement in ((False, True), (False, False), (True, False)):
+        a = buffer_sample(ref, B, prioritize, replacement,
+                          generator=torch.Generator("cuda").manual_seed(4))
+        b = ops.sample(shb, B, prioritize, replacement,
+                       generator=torch.Generator("cuda").manual_seed(4))
+        same = same and all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"[phase 15] ShardedBufferOps (world 1, {ops.rows_per_rank(shb)} rows a rank) against "
+          f"the plain buffer, capacity {cap} x {dim}, 3 masked adds of 4,096, {B} rows in each "
+          f"sampling mode: bitwise equal {same}")
+    if not same:
+        fail("phase 15: the sharded buffer disagrees with the plain buffer")
+    return dict(dp_weight_gap=err / change, dp_step_ms=med["dp"], trainer_step_ms=med["trainer"])
+
+
+def many_well_log_Z(dim=32):
+    """ManyWell's exact log Z at T = 1: dim/2 x (log of the 1-D well's
+    integral by the trapezoid rule on [-6, 6], 200,001 points) + dim/2 x
+    1/2 log 2 pi."""
+    import numpy as np
+
+    x = np.linspace(-6.0, 6.0, 200001)
+    y = np.exp(-(-0.5 * x - 6.0 * x ** 2 + x ** 4))
+    z1 = float((y[1:] + y[:-1]).sum() * (x[1] - x[0]) / 2)
+    return dim // 2 * (math.log(z1) + 0.5 * math.log(2 * math.pi))
+
+
+def phase_fab():
+    """Phase 15c: FAB at pita_tpu's defaults on the card: AIS to a normalized
+    Gaussian (|log Z| < 0.1), one prioritised-buffer inner step card against
+    CPU, AIS calls and inner steps timed, 50 outer iterations on ManyWell-32,
+    and AIS's log Z of ManyWell-32 from the trained flow beside the exact one."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pita_torch.fab import (AISConfig, FABConfig, FabDraws, FlowDistribution,
+                                GaussianTarget, ManyWell, annealed_importance_sampling,
+                                train_fab_with_prioritised_buffer)
+    from pita_torch.fab.fab_model import (_ais_cfg, flow_ais, prioritised_loss,
+                                          prioritised_step)
+    from pita_torch.train.buffer import PrioritisedBuffer, prioritised_add, prioritised_init
+    from pita_torch.train.optim import adam_init
+
+    gen = lambda s: torch.Generator("cuda").manual_seed(s)
+    base = GaussianTarget(np.zeros(2), np.full(2, 2.0), device="cuda")
+    target = GaussianTarget(np.ones(2), np.ones(2), device="cuda")
+    t0 = time.perf_counter()
+    res = annealed_importance_sampling(
+        lambda n, d: base.sample_and_log_prob(n, eps=d.base((n, 2))), base.log_prob,
+        target.log_prob, 2048, AISConfig(n_intermediate_distributions=16, n_inner_steps=3),
+        FabDraws(gen(0)))
+    torch.cuda.synchronize()
+    gauss_log_Z = float(res.log_Z)
+    print(f"[phase 15] AIS N(0, 4I) -> N(1, I), 2,048 chains, 16 intermediate distributions x 3 "
+          f"HMC sweeps: {time.perf_counter() - t0:.2f} s, log Z {float(res.log_Z):+.4f} "
+          f"(|log Z| < 0.1), ESS {float(res.ess_base):.4f} -> {float(res.ess_ais):.4f}")
+    if not abs(float(res.log_Z)) < 0.1:
+        fail("phase 15: AIS misses log Z of a normalized Gaussian")
+
+    mw, cfg = ManyWell(dim=32), FABConfig()
+    ais_cfg = _ais_cfg(cfg, min_is_target=True)
+    flow = FlowDistribution(32, device="cuda", generator=gen(1))
+    draws = FabDraws(gen(2))
+    buf = prioritised_init(cfg.buffer_capacity, 32, device="cuda")
+    ais_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = flow_ais(flow, mw.log_prob, cfg.batch_size, ais_cfg, draws)
+        with torch.no_grad():
+            buf = prioritised_add(buf, r.samples, r.log_w, flow.log_prob(r.samples))
+        torch.cuda.synchronize()
+        ais_ms.append((time.perf_counter() - t0) * 1e3)
+    cpu = FlowDistribution(32, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in flow.module.state_dict().items()})
+    buf_cpu = PrioritisedBuffer(buf.x.cpu(), buf.log_w.cpu(), buf.log_q.cpu(), buf.pos, buf.size)
+    gumbel = draws.gumbel((cfg.buffer_capacity,))
+    card = copy.deepcopy(flow)
+    grads = [torch.autograd.grad(prioritised_loss(f, b, cfg, g)[0], f.parameters())
+             for f, b, g in ((card, buf, gumbel), (cpu, buf_cpu, gumbel.cpu()))]
+    g_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*grads)) / max(
+        float(b.abs().max()) for b in grads[1])
+    _, buf_c, loss_c, ok_c = prioritised_step(card, copy.deepcopy(buf),
+                                              adam_init(card.parameters()), cfg, gumbel)
+    _, buf_h, loss_h, ok_h = prioritised_step(cpu, buf_cpu, adam_init(cpu.parameters()), cfg,
+                                              gumbel.cpu())
+    w_err = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(card.parameters(), cpu.parameters())) / cfg.lr
+    l_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    b_err = max(rel_err(buf_c.log_w.cpu()[:buf.size], buf_h.log_w[:buf.size])[0],
+                rel_err(buf_c.log_q.cpu()[:buf.size], buf_h.log_q[:buf.size])[0])
+    print(f"[phase 15] FAB inner step on ManyWell-32 (flow 8 x 64, batch {cfg.batch_size}, "
+          f"from 5 AIS calls), card against CPU: loss rel err {l_err:.2e}, gradients {g_err:.2e} "
+          f"of the largest, buffer log w / log q rel err {b_err:.2e} (tol {TOL_FAB_STEP}); "
+          f"weights after the step {w_err:.2e} lr apart (tol {TOL_FAB_WEIGHTS_LR}); applied "
+          f"{ok_c} / {ok_h}")
+    if not (ok_c and ok_h and max(l_err, g_err, b_err) <= TOL_FAB_STEP
+            and w_err <= TOL_FAB_WEIGHTS_LR):
+        fail("phase 15: FAB's inner step on the card disagrees with the CPU")
+    state = adam_init(card.parameters())
+    step_ms = []
+    for _ in range(10):
+        g = draws.gumbel((cfg.buffer_capacity,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, buf_c, _, _ = prioritised_step(card, buf_c, state, cfg, g)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    n_iter = 50
+    trained = FlowDistribution(32, device="cuda", generator=gen(1))
+    t0 = time.perf_counter()
+    fbuf, hist = train_fab_with_prioritised_buffer(trained, mw.log_prob, cfg, n_iter, seed=3)
+    torch.cuda.synchronize()
+    t_fab = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    ess = [h["ess_ais"] for h in hist]
+    want_size = min(n_iter * cfg.batch_size, cfg.buffer_capacity)
+    res = flow_ais(trained, mw.log_prob, 2048, _ais_cfg(cfg, min_is_target=False), FabDraws(gen(4)))
+    exact = many_well_log_Z(32)
+    print(f"[phase 15] FAB with the prioritised buffer, ManyWell-32, FABConfig() (batch "
+          f"{cfg.batch_size}, {cfg.n_intermediate_distributions} intermediate distributions, "
+          f"HMC): {n_iter} outer iterations in {t_fab:.2f} s ({len(hist)} that trained, "
+          f"{cfg.n_batches_buffer_sampling} inner steps each); an AIS call median "
+          f"{np.median(ais_ms):.1f} ms, an inner step median {np.median(step_ms):.2f} ms; "
+          f"ESS of the alpha-target AIS first {ess[0]:.4f}, last {ess[-1]:.4f}; loss first "
+          f"{losses[0]:.4f}, last {losses[-1]:.4f}; buffer {fbuf.size} rows ({want_size} "
+          f"expected)")
+    print(f"[phase 15] AIS to ManyWell-32 from the trained flow, 2,048 chains: log Z "
+          f"{float(res.log_Z):.4f}, exact {exact:.4f} (16 x log of the 1-D well's integral by "
+          f"quadrature + 16 x 1/2 log 2 pi), ESS {float(res.ess_base):.4f} -> "
+          f"{float(res.ess_ais):.4f}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(ess)) and fbuf.size == want_size
+            and np.isfinite(float(res.log_Z))):
+        fail("phase 15: FAB on ManyWell-32 gave a non-finite loss, ESS or log Z, or a short "
+             "buffer")
+    return dict(fab_ais_ms=float(np.median(ais_ms)), fab_inner_step_ms=float(np.median(step_ms)),
+                fab_step_card_cpu=max(l_err, g_err, b_err), fab_s=t_fab, fab_ess_last=ess[-1],
+                manywell_log_Z=float(res.log_Z), manywell_log_Z_exact=exact,
+                gauss_log_Z=gauss_log_Z)
+
+
+def phase_parallel_fab(kernels, tmp, wl=None):
+    """Phase 15: sharded sampling and data-parallel training over NCCL at
+    world size 1 (the one card), FAB with the prioritised buffer."""
+    import torch
+    import torch.distributed as dist
+
+    from pita_torch.io.bench_asset import load_lj55_bench
+
+    wl = wl or load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    group = nccl_group(tmp)
+    try:
+        out, parts = {}, {}
+        for name, run in (("sharded sampling", lambda: phase_sharded_sampling(kernels, wl, group)),
+                          ("DP and buffer", lambda: phase_dp_and_buffer(group, tmp, wl)),
+                          ("FAB", phase_fab)):
+            t1 = time.perf_counter()
+            out.update(run())
+            parts[name] = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[phase 15] multi-GPU at world size 1 and FAB: {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main():
     import torch
 
@@ -2975,6 +3360,10 @@ def main():
     if "--oracle-only" in sys.argv[1:]:  # quick check of the oracle and the new presets
         with tempfile.TemporaryDirectory() as tmp:
             phase_oracle(kernels, tmp)
+        return 0
+    if "--parallel-fab-only" in sys.argv[1:]:  # quick check of phase 15
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_parallel_fab(kernels, tmp)
         return 0
 
     wl = load_lj55_bench(device="cuda", compute_dtype=torch.bfloat16)
@@ -3092,6 +3481,8 @@ def main():
         peptide = phase_peptides(kernels, tmp)
         # phase 14: the GMM oracle, the rest of the sampler, gmm, dw4, TorchMD-ET
         oracle = phase_oracle(kernels, tmp, wl, wl32)
+        # phase 15: sharded sampling and DP training over NCCL at world size 1, FAB
+        parallel_fab = phase_parallel_fab(kernels, tmp, wl)
 
     src = "pita_torch/csrc/"
     line = {"kernels": [
@@ -3134,7 +3525,7 @@ def main():
              launches=ex_counts["g_kernel"]["_contract_scalar"], **k5_scalar),
         *training_rows,
         *tools_rows,
-    ], "peptide": peptide, "oracle": oracle}
+    ], "peptide": peptide, "oracle": oracle, "parallel_fab": parallel_fab}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

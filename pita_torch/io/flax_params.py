@@ -214,6 +214,21 @@ def mlp_params_from_tree(tree) -> dict:
     return sd
 
 
+def fab_flow_params_from_tree(tree) -> dict:
+    """The RealNVP flax tree of ``pita_tpu.fab.flow`` as the state dict of
+    ``pita_torch.fab.flow.RealNVP``: coupling i's ``Dense_0``, ``Dense_1``
+    and ``Dense_2`` become ``conditioners.{i}.0``, ``.2`` and ``.4`` (the
+    SiLUs sit between them)."""
+    p = tree["params"]
+    sd = {}
+    i = 0
+    while f"coupling_{i}" in p:
+        for j in range(3):
+            _dense(sd, f"conditioners.{i}.{2 * j}", p[f"coupling_{i}"][f"Dense_{j}"])
+        i += 1
+    return sd
+
+
 def _layernorm(sd, name, q):
     sd[f"{name}.weight"] = torch.as_tensor(np.array(q["scale"], dtype=np.float32))
     sd[f"{name}.bias"] = torch.as_tensor(np.array(q["bias"], dtype=np.float32))
@@ -313,7 +328,8 @@ def trainer_state_from_tree(state, n_layers: int, attention: bool = True) -> dic
 
 
 __all__ = [
-    "W_FIELDS", "dit_params_from_tree", "egnn_params_from_tree", "load_egnn_params",
+    "W_FIELDS", "dit_params_from_tree", "egnn_params_from_tree", "fab_flow_params_from_tree",
+    "load_egnn_params",
     "mlp_params_from_tree", "msgpack_restore", "net_params_from_tree",
     "torchmd_et_params_from_tree", "trainer_state_from_tree",
 ]

@@ -17,6 +17,14 @@ the device, so a later change can capture the step in a CUDA graph.
 
 Randomness comes from a ``draws`` object (see ``GeneratorDraws``), so a test
 can replay another framework's draws step for step.
+
+With a ``group`` (``pita_torch.parallel``) each rank integrates its own rows
+of the chains, and every reduction over chains is taken over the global
+batch: the drift's quantile clamp, the resample's softmax and cumsum, the ESS
+trigger, ``count_unique``, the term diagnostics, the final resample and
+MALA's acceptance. After a resample the chain state is gathered and indexed
+by the global ancestor choice, which every rank computes alike from a
+replicated uniform. The result is global on every rank.
 """
 
 import dataclasses
@@ -156,18 +164,34 @@ def step_flags(cfg: IntegratorConfig, resampling_interval: int):
     return in_window, freeze, resample, rediv
 
 
-def _std(v, like):
-    return torch.zeros((), device=like.device) if v is None else v.std(correction=0)
+def _all(group, v):
+    """The global vector of per-chain values ``v``: this rank's rows alone
+    without a group."""
+    return v if group is None else group.gather_rows(v)
+
+
+def _pick(group, v, choice):
+    """The rows ``choice`` (global indices) of the chains' ``v``, this rank's
+    share of them."""
+    if group is None:
+        return v[choice]
+    return group.gather_rows(v)[group.shard(choice)]
+
+
+def _std(v, like, group=None):
+    return torch.zeros((), device=like.device) if v is None else _all(group, v).std(correction=0)
 
 
 def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_schedule,
                   target, beta, cfg: IntegratorConfig, *, draws=None, seed: int = 0,
-                  device=None) -> IntegrateResult:
+                  device=None, group=None) -> IntegrateResult:
     """Integrate the annealed reverse SDE from prior samples ``x1`` (B, D).
 
     ``device`` defaults to CUDA (raising without a GPU); the networks must
     already live there. ``draws`` defaults to ``GeneratorDraws`` over a
-    generator seeded with ``seed``.
+    generator seeded with ``seed``. With a ``group``, ``x1`` and the draws
+    are this rank's rows (``pita_torch.parallel.sharded_integrate`` makes
+    both) and the result is global.
     """
     dev = resolve_device(device)
     x = x1.to(dev, torch.float32)
@@ -188,7 +212,8 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
 
     a = torch.zeros(B, device=dev)
     div_c = torch.zeros(B, device=dev)
-    full_B = torch.full((), B, dtype=torch.int32, device=dev)
+    B_all = B if group is None else B * group.world_size
+    full_B = torch.full((), B_all, dtype=torch.int32, device=dev)
     lw_rows, nu_rows = [], []
     stats = {"divergence": [], "cross_term": [], "dUt_dt": []}
     for i in range(n):
@@ -211,7 +236,7 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
             divergence_tangent_kernel=cfg.divergence_tangent_kernel,
             kernel_tangent_chunk=cfg.kernel_tangent_chunk,
             probes=probes, div_bt_override=override, pin_energy=cfg.pin_energy,
-            energy_function=target.log_prob if cfg.pin_energy else None,
+            energy_function=target.log_prob if cfg.pin_energy else None, group=group,
         )
         div_new = terms.divergence if terms.divergence is not None else div_c
         noise = draws.noise(i, (B, D))
@@ -227,23 +252,24 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
 
         n_unique = full_B
         if resample_f[i]:
-            choice = systematic_resample(a_next, u0)
+            a_all = _all(group, a_next)
+            choice = systematic_resample(a_all, u0)
             fire = torch.ones((), dtype=torch.bool, device=dev)
             if cfg.ess_resampling_threshold is not None:
-                ess = effective_sample_size(a_next, normalize=True)
+                ess = effective_sample_size(a_all, normalize=True)
                 fire = ess < cfg.ess_resampling_threshold
-            x_next = torch.where(fire, x_next[choice], x_next)
+            x_next = torch.where(fire, _pick(group, x_next, choice), x_next)
             a_next = torch.where(fire, torch.zeros_like(a_next), a_next)
             # the carried divergence follows its chain through resampling
-            div_new = torch.where(fire, div_new[choice], div_new)
-            n_unique = torch.where(fire, count_unique(choice, B), full_B)
+            div_new = torch.where(fire, _pick(group, div_new, choice), div_new)
+            n_unique = torch.where(fire, count_unique(choice, B_all), full_B)
 
         x, a, div_c = x_next, a_next, div_new
         lw_rows.append(a)
         nu_rows.append(n_unique)
-        stats["divergence"].append(_std(terms.divergence, x))
-        stats["cross_term"].append(_std(terms.cross_term, x))
-        stats["dUt_dt"].append(_std(terms.dUt_dt, x))
+        stats["divergence"].append(_std(terms.divergence, x, group))
+        stats["cross_term"].append(_std(terms.cross_term, x, group))
+        stats["dUt_dt"].append(_std(terms.dUt_dt, x, group))
 
     if cfg.resample_at_end and weights_on and resampling_interval < n:
         # final resample against the true target, the learned energy as the
@@ -254,12 +280,12 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
         with torch.no_grad():
             model_energy = energy_wrapper.energy(noise_schedule.h(t_end), x, beta, **pin_kw)
         logq0 = -model_energy * annealing_schedule.gamma(t_end)
-        a_end = target.log_prob(x) - logq0 + a
+        a_end = _all(group, target.log_prob(x) - logq0 + a)
         a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))
         choice = systematic_resample(a_end, draws.end_u0())
-        x = x[choice]
-        lw_rows.append(a_end)
-        nu_rows.append(count_unique(choice, B))
+        x = _pick(group, x, choice)
+        lw_rows.append(a_end if group is None else group.shard(a_end))
+        nu_rows.append(count_unique(choice, B_all))
 
     if cfg.num_negative_time_steps > 0:
         x = negative_time_descent(x, target, cfg.num_negative_time_steps,
@@ -268,11 +294,13 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
     acceptance = torch.zeros(0, device=dev)
     if cfg.post_mcmc_steps > 0:
         x, acceptance = mala(x, target, cfg.post_mcmc_steps, cfg.dt_negative_time,
-                             cfg.adaptive_mcmc, draws, mean_free)
+                             cfg.adaptive_mcmc, draws, mean_free, group=group)
 
+    lw = torch.stack(lw_rows)
+    if group is not None:
+        x, lw = group.gather_rows(x), group.gather_rows(lw, dim=1)
     return IntegrateResult(
-        x, torch.stack(lw_rows), torch.stack(nu_rows),
-        {k: torch.stack(v) for k, v in stats.items()}, acceptance,
+        x, lw, torch.stack(nu_rows), {k: torch.stack(v) for k, v in stats.items()}, acceptance,
     )
 
 
@@ -292,17 +320,19 @@ def negative_time_descent(x, target, num_steps, dt, do_langevin, draws, mean_fre
 
 
 def mala(x, target, num_steps, dt_init, adaptive, draws, mean_free,
-         target_accept: float = 0.55):
+         target_accept: float = 0.55, group=None):
     """Metropolis-adjusted Langevin refinement (sde_integration.py:362-470).
 
     Non-finite chains stay frozen in place. Adaptive mode multiplies or
-    divides the step size by 1.1 around the target acceptance rate.
+    divides the step size by 1.1 around the target acceptance rate, taken
+    over all ranks' chains with a ``group``.
     """
+    total = (lambda v: v) if group is None else group.sum
     n_part = getattr(target, "n_particles", 1)
     n_sdim = getattr(target, "n_spatial_dim", x.shape[-1])
     lp, force = target.log_prob_and_force(x)
     valid = torch.isfinite(lp)
-    n_valid = torch.clamp(valid.sum(), min=1)
+    n_valid = torch.clamp(total(valid.sum()), min=1)
     dt = torch.full((), dt_init, dtype=x.dtype, device=x.device)
     rates = []
     for k in range(num_steps):
@@ -316,7 +346,7 @@ def mala(x, target, num_steps, dt_init, adaptive, draws, mean_free,
         log_q_bwd = -((x - bwd_mean) ** 2).sum(-1) / (2 * dt)
         log_ratio = (lp_prop - lp) + (log_q_bwd - log_q_fwd)
         accept = (torch.log(u) < log_ratio) & valid
-        acc_rate = (accept & valid).sum() / n_valid
+        acc_rate = total((accept & valid).sum()) / n_valid
         x_new = torch.where(accept[:, None], prop, x)
         if mean_free:
             x_new = torch.where(valid[:, None], remove_mean(x_new, n_part, n_sdim), x_new)

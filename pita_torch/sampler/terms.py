@@ -25,6 +25,9 @@ Laplacian of the energy net's ``"autograd"`` route (terms.py:203-212). With
 ``pin_energy`` the energy is pinned to the target's ``energy_function``
 (its ``log_prob``) by (1−t)³ at the step's time t (``pin_kw``, :115), in
 every evaluation of U here: t enters the pin as a constant, as in pita_tpu.
+
+With a ``group`` (``pita_torch.parallel``) the rows are one rank's share of
+the chains and the quantile clamp is taken over all ranks' drift_A.
 """
 
 from typing import NamedTuple, Optional
@@ -61,7 +64,8 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
                       kernel_tangent_chunk: int = 16,
                       probes=None,
                       div_bt_override: Optional[torch.Tensor] = None,
-                      pin_energy: bool = False, energy_function=None) -> SDETerms:
+                      pin_energy: bool = False, energy_function=None,
+                      group=None) -> SDETerms:
     """drift_X and drift_A at times t (B,) for chains x (B, D).
 
     ``probes``: the Rademacher vectors of the estimate, needed in the
@@ -143,5 +147,6 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
         + annealing_schedule.dgamma_dt(t) * U
     )
     if clip_quantile < 1.0:
-        drift_A = torch.minimum(drift_A, torch.quantile(drift_A, clip_quantile))
+        every = drift_A if group is None else group.gather_rows(drift_A)
+        drift_A = torch.minimum(drift_A, torch.quantile(every, clip_quantile))
     return SDETerms(drift_X, drift_A, div_bt, inner, dU_dt)

@@ -10,11 +10,13 @@ in Kelvin and ``log_prob = −E/(k_B·T)``. The force is autograd's, from
 ``Target.log_prob_and_force``.
 
 A data set is ``{peptide}_temp_{T:.2f}_{which}.npy`` under ``data_dir``
-when it is there; otherwise it is generated on the device asked for, by
-Langevin MD (``data_source="md"``, ``pita_torch.baselines.md``) or adaptive
-MALA (``"mala"``), seeds 11, 12 and 13 for train, val and test, and saved
-under ``data_dir`` when that is set. ``pita_tpu``'s ``data_url`` download is
-not ported: a target built with one raises.
+when it is there; else, with a ``data_dir`` and a ``data_url`` (a format
+string of ``peptide`` and ``which``), it is downloaded there by
+``pita_torch.io.datamodule.download_dataset`` (checked against
+``data_sha256`` when given); otherwise it is generated on the device asked
+for, by Langevin MD (``data_source="md"``, ``pita_torch.baselines.md``) or
+adaptive MALA (``"mala"``), seeds 11, 12 and 13 for train, val and test, and
+saved under ``data_dir`` when that is set.
 """
 
 import os
@@ -318,9 +320,6 @@ class ALPEnergy(Target):
                  implicit_solvent: bool = True, data_dir: Optional[str] = None,
                  data_source: str = "md", data_url: Optional[str] = None,
                  data_sha256: Optional[str] = None):
-        if data_url is not None:
-            raise ValueError("data_url: downloading a data set is not ported; put "
-                             f"{peptide}_temp_<T>_<which>.npy under data_dir instead")
         if data_source not in ("md", "mala"):
             raise ValueError(f"data_source must be 'md' or 'mala', got {data_source!r}")
         self.peptide = peptide
@@ -335,6 +334,8 @@ class ALPEnergy(Target):
         self.name = peptide
         self.data_dir = data_dir
         self.data_source = data_source
+        self.data_url = data_url
+        self.data_sha256 = data_sha256
         self._initial_structure = None
 
     def params_on(self, device) -> ForceFieldParams:
@@ -381,6 +382,12 @@ class ALPEnergy(Target):
             path = os.path.join(self.data_dir,
                                 f"{self.peptide}_temp_{self.temperature:.2f}_{which}.npy")
             if os.path.exists(path):
+                return np.load(path).reshape(-1, self.dim).astype(np.float32)
+            if self.data_url is not None:
+                from pita_torch.io.datamodule import download_dataset
+
+                download_dataset(self.data_url.format(peptide=self.peptide, which=which), path,
+                                 sha256=self.data_sha256)
                 return np.load(path).reshape(-1, self.dim).astype(np.float32)
         seed = dict(train=11, val=12, test=13)[which]
         gen = self._generate_md_set if self.data_source == "md" else self._generate_mala_set

@@ -1,17 +1,16 @@
 """Replay buffer: a ring of (x, log-prob, force) rows, one per ladder rung.
 
-Counterpart of ``pita_tpu/train/buffer.py:28-160,227-251`` (``buffer_init``,
+Counterpart of ``pita_tpu/train/buffer.py:28-251`` (``buffer_init``,
 ``buffer_add``, ``buffer_sample``, ``buffer_last_n``, the per-rung stack
 ``stack_buffers``/``buffer_view``/``buffer_set``, ``buffer_save`` and
-``buffer_load``). The ``energy`` field holds log-probabilities, as in the
-reference.
+``buffer_load``, and FAB's ``PrioritisedBuffer``). The ``energy`` field
+holds log-probabilities, as in the reference.
 
 Where JAX returns new arrays, the port writes in place: ``buffer_add``
 writes its rows into the buffer's tensors (a ``buffer_view`` of a stack is
 a view, so they land in the stack) and returns the buffer with its new
 cursor. The cursor and fill count are host integers (the stack keeps them as
-int64 CPU tensors), so sampling waits on nothing. The FAB-style
-``PrioritisedBuffer`` is not ported.
+int64 CPU tensors), so sampling waits on nothing.
 """
 
 from typing import NamedTuple
@@ -127,6 +126,65 @@ def buffer_set(bufs: ReplayBuffer, i: int, buf: ReplayBuffer) -> ReplayBuffer:
     bufs.pos[i] = int(buf.pos)
     bufs.size[i] = int(buf.size)
     return bufs
+
+
+class PrioritisedBuffer(NamedTuple):
+    """FAB's (x, log w, log q) ring (prioritised_replay_buffer.py:49-221),
+    sampled ∝ exp(log w) without replacement by Gumbel-top-k (:36-46).
+    Its only user is ``pita_torch.fab.fab_model``."""
+
+    x: torch.Tensor  # (capacity, dim)
+    log_w: torch.Tensor  # (capacity,), −∞ where empty
+    log_q: torch.Tensor  # (capacity,)
+    pos: int
+    size: int
+
+
+def prioritised_init(capacity: int, dim: int, device=None,
+                     dtype=torch.float32) -> PrioritisedBuffer:
+    return PrioritisedBuffer(
+        x=torch.zeros((capacity, dim), dtype=dtype, device=device),
+        log_w=torch.full((capacity,), -float("inf"), dtype=dtype, device=device),
+        log_q=torch.zeros((capacity,), dtype=dtype, device=device),
+        pos=0, size=0,
+    )
+
+
+def prioritised_add(buf: PrioritisedBuffer, x, log_w, log_q) -> PrioritisedBuffer:
+    """Write a batch at the cursor, wrapping around (in place)."""
+    n, cap = x.shape[0], buf.x.shape[0]
+    idx = (buf.pos + torch.arange(n, device=buf.x.device)) % cap
+    buf.x[idx] = x.to(buf.x)
+    buf.log_w[idx] = log_w.to(buf.log_w)
+    buf.log_q[idx] = log_q.to(buf.log_q)
+    return buf._replace(pos=(buf.pos + n) % cap, size=min(buf.size + n, cap))
+
+
+def prioritised_sample(buf: PrioritisedBuffer, batch_size: int, gumbel=None, generator=None):
+    """``batch_size`` distinct rows drawn ∝ exp(log w) among the filled ones:
+    the top k of log w + Gumbel noise. ``gumbel`` (capacity,) standard
+    Gumbel draws, else drawn from ``generator``. Returns (x, log w, log q,
+    idx)."""
+    cap = buf.x.shape[0]
+    if gumbel is None:
+        u = torch.rand(cap, generator=generator, device=buf.x.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    valid = torch.arange(cap, device=buf.x.device) < buf.size
+    logits = torch.where(valid, buf.log_w, -float("inf"))
+    idx = torch.topk(logits + gumbel.to(logits), batch_size).indices
+    return buf.x[idx], buf.log_w[idx], buf.log_q[idx], idx
+
+
+def prioritised_adjust(buf: PrioritisedBuffer, log_q_new, idx=None) -> PrioritisedBuffer:
+    """Re-weight after the proposal changed (:178-198): log w += log q_old −
+    log q_new at ``idx`` (every row by default), −∞ where that is not
+    finite, and log q ← log q_new (in place)."""
+    if idx is None:
+        idx = torch.arange(buf.x.shape[0], device=buf.x.device)
+    log_w_new = buf.log_w[idx] + buf.log_q[idx] - log_q_new
+    buf.log_w[idx] = torch.where(torch.isfinite(log_w_new), log_w_new, -float("inf"))
+    buf.log_q[idx] = log_q_new.to(buf.log_q)
+    return buf
 
 
 def buffer_save(buf: ReplayBuffer, path: str):

@@ -20,6 +20,12 @@ differentiates ∇ₓE_θ again in the weights, which takes backbones on the
 ``"autograd"`` route (``pita_torch.nets.egnn``). Randomness enters through
 ``LossDraws`` (the schedule's standard draw of ln σ, the standard
 normals of the noise and of the DEM probes) or a ``torch.Generator``.
+
+With a ``group`` (``pita_torch.parallel``) the batch is one rank's rows of a
+global batch and every loss is this rank's share of the global loss: a mean
+is the local sum over the global batch size, a subset mean the local sum
+over the global subset's size. The shares' gradients sum over the ranks to
+the global loss's gradient.
 """
 
 import dataclasses
@@ -73,9 +79,20 @@ def draw_losses(cfg: LossConfig, noise_schedule, B: int, D: int, generator,
     return LossDraws(ln, z, dem)
 
 
-def _subset_mean(per_sample, mask):
-    """Mean over the masked subset (the reference indexes the subset, then .mean())."""
-    return (per_sample * mask).sum() / mask.to(per_sample.dtype).sum().clamp_min(1.0)
+def _mean(per_sample, group=None):
+    """The batch mean, or with a group this rank's share of the global one."""
+    if group is None:
+        return per_sample.mean()
+    return per_sample.sum() / (per_sample.shape[0] * group.world_size)
+
+
+def _subset_mean(per_sample, mask, group=None):
+    """Mean over the masked subset (the reference indexes the subset, then
+    .mean()); with a group this rank's share of the global subset's mean."""
+    count = mask.to(per_sample.dtype).sum()
+    if group is not None:
+        count = group.sum(count)
+    return (per_sample * mask).sum() / count.clamp_min(1.0)
 
 
 def _h_at(noise_schedule, t, like):
@@ -85,7 +102,7 @@ def _h_at(noise_schedule, t, like):
 def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfig, x0,
                    x0_energies, x0_forces, beta, target=None, n_particles: int = 1,
                    n_spatial_dim: int = 1, mean_free: bool = False, draws: LossDraws = None,
-                   generator=None):
+                   generator=None, group=None):
     """Returns (total loss, aux) for one batch (energytemp_module.py:323-390,620-694).
 
     ``x0_energies`` are log-probabilities and ``x0_forces`` their gradients,
@@ -113,7 +130,7 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
     if cfg.w_score > 0:
         t_mask = ht >= _h_at(noise_schedule, cfg.time_threshold_score, ht)
         score_loss_vec = lambda_t * (((D_score - x0) ** 2).sum(-1) * t_mask)
-        score_loss = score_loss_vec.mean()
+        score_loss = _mean(score_loss_vec, group)
     else:
         score_loss_vec, score_loss = zeros_b, zero
 
@@ -133,7 +150,8 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
         ts_mask = ht < _h_at(noise_schedule, cfg.time_threshold_target_score, ht)
         nabla_U0 = clip_scores(-x0_forces, cfg.max_score_norm, n_particles, n_spatial_dim)
         target_x0 = xt - nabla_U0 * ht[:, None]
-        target_score_loss = _subset_mean(((target_x0 - D_score) ** 2).sum(-1), ts_mask)
+        target_score_loss = _subset_mean(((target_x0 - D_score) ** 2).sum(-1), ts_mask,
+                                         group)
     else:
         target_score_loss = zero
 
@@ -143,7 +161,7 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
         D_energy, dU_dh, U_t = energy_wrapper.denoiser_and_energy(ht, xt, beta)
         dU_dt = dU_dh * noise_schedule.dh_dt(noise_schedule.t(ht))
         es_loss_vec = lambda_t * ((D_energy - D_score.detach()) ** 2).sum(-1)
-        energy_score_loss = es_loss_vec.mean()
+        energy_score_loss = _mean(es_loss_vec, group)
     else:
         U_t = energy_wrapper.energy(ht, xt, beta) if need_Ut else zeros_b
         dU_dt, es_loss_vec, energy_score_loss = zeros_b, zeros_b, zero
@@ -153,7 +171,7 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
         U0_true = -x0_energies
         em_mask = U0_true <= cfg.energy_threshold
         U0_pred = energy_wrapper.energy(h0, x0, beta)
-        energy_matching_loss = ((U0_true - U0_pred) ** 2 * em_mask).mean()
+        energy_matching_loss = _mean((U0_true - U0_pred) ** 2 * em_mask, group)
     else:
         energy_matching_loss = zero
 
@@ -162,7 +180,7 @@ def compute_losses(score_wrapper, energy_wrapper, noise_schedule, cfg: LossConfi
         dem_mask = ht < _h_at(noise_schedule, cfg.dem_time_threshold, ht)
         Ut_est = -estimate_Rt(ht, xt, target.log_prob, draws.dem_eps)
         ok = Ut_est <= cfg.energy_threshold
-        dem_energy_loss = _subset_mean((Ut_est - U_t) ** 2 * ok, dem_mask)
+        dem_energy_loss = _subset_mean((Ut_est - U_t) ** 2 * ok, dem_mask, group)
     else:
         dem_energy_loss = zero
 

@@ -128,9 +128,14 @@ def test_cached_data_dir_set_loads_identically(tmp_path):
     assert all(any(np.array_equal(r, d) for d in data) for r in rows)
 
 
-def test_data_url_raises():
-    with pytest.raises(ValueError, match="data_url"):
-        talp.ALPEnergy("aldp", data_dir="/nonexistent", data_url="https://example.invalid/{which}")
+def test_data_url_raises(tmp_path):
+    """With a data_url and no set on disk, a failed download raises the
+    datamodule's error when the set is first needed, as pita_tpu's target
+    does (alp.py:426-433); the URL is a closed port on this host."""
+    t = talp.ALPEnergy("aldp", data_dir=str(tmp_path),
+                       data_url="http://127.0.0.1:1/{peptide}_{which}.npy")
+    with pytest.raises(RuntimeError, match="download failed"):
+        t.setup_val_set("cpu")
 
 
 def test_at_temperature_keeps_the_params_and_scales_log_prob():
