@@ -73,13 +73,12 @@ Phases, each printing lines, each failing the run on disagreement:
  11. the LJ55 training ladder through pita_torch.configs.build_trainer (the
      lj55 preset: N = 55, hidden 32, 3 layers, f32): the rung-0 train set by
      generate_lj_dataset (512 chains, 12,000 warmup steps; K1 must launch,
-     the first K1 never), then the same generator with a 4,000-step warmup
-     timed by each K1 in turns, 2 epochs x 25 batches of 256 on the
-     autograd route (finite losses, no kernel launched, one step on the
-     card against the same step on the CPU at batch 64, and the EMA's
-     kernel buffers repacked), one rung transition's fill by evaluate
-     through the K4 route (256 chains x 100 steps; the f32 K1, K2, K3 and
-     K4 must launch and no tensor-core kernel;
+     the first K1 never), then the same generator timed by each K1 in turns,
+     2 epochs x 25 batches of 256 on the autograd route (finite losses, no
+     kernel launched, one step on the card against the same step on the CPU
+     at batch 64, and the EMA's kernel buffers repacked), one rung
+     transition's fill by evaluate through the K4 route (256 chains x 100
+     steps; the f32 K1, K2, K3 and K4 must launch and no tensor-core kernel;
      finite weights and energies; the rung-1 buffer filled; no escalated
      retry), K1 and the f32 K2/K3/K4 compared and timed at those launches
      (K1's device time also by torch.profiler, which must find it), a fill
@@ -112,7 +111,7 @@ Phases, each printing lines, each failing the run on disagreement:
      same normals (1e-4 nm); the aldp ladder through build_trainer and fit
      at the preset's full DiT3D width on train/val/test sets written by the
      port's MD (2 epochs x 10 batches of 2,048, one transition 1,200 ->
-     755.95 K filled at 512 chains x 50 steps with the exact trace by D
+     755.95 K filled at 512 chains x 100 steps with the exact trace by D
      VJPs and 5 MALA steps): finite losses and val/rama, val/tica, val/ic
      metrics and chirality rates, the rung-1 buffer filled, none of the
      five kernels launched; a float32 step on the card against the CPU at
@@ -125,7 +124,7 @@ Phases, each printing lines, each failing the run on disagreement:
      runs of tests/test_annealing_oracle.py (GMM-40 annealed to the exact
      p², 2,048 chains x 1,000 steps; exact, hutchinson + 30 MALA,
      hutchinson with ESS 0.5, hutch_ess_k10, hutchpp) held to that test's
-     bounds against exact draws of p², then hutch_ess_k10 over 4 more seeds
+     bounds against exact draws of p², then hutch_ess_k10 over 8 more seeds
      with the count of far-off samples; on the LJ55 bench pair Hutch++ at
      rank 165 against the edge-operator trace, a hutchpp run (rank 16, 256
      chains x 20 steps; K2 and K3 launch, K4 and K5 not), the score-free
@@ -1345,32 +1344,28 @@ class _FirstK1:
 
 def train_set_in_turns(target):
     """The rung-0 train set's generator (seed 101, 10,000 samples, 512
-    chains), its warmup cut from 12,000 MALA steps to 4,000, by each K1 in
-    turns, first, new, new, first: seconds and launches. The MALA step's
-    host time around K1 sets its pace."""
+    chains) by each K1 in turns, first, new, new, first: seconds and
+    launches. The MALA step's host time around K1 sets its pace."""
     import torch
 
     from pita_torch.baselines.mcmc import generate_lj_dataset
     from pita_torch.ops import lj as ljop
 
     secs = {"first": [], "new": []}
-    # relax 2,000 + warmup 4,000 + 2 chunk starts + the health check + 20
-    # rounds of 200 steps + 20 round starts
-    want = 10023
     for which in ("first", "new", "new", "first"):
         before = (ljop.lj_log_prob_and_force.launches, ljop._lj_scalar.launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         generate_lj_dataset(_FirstK1(target) if which == "first" else target, 10000, seed=101,
-                            warmup=4000, device="cuda")
+                            device="cuda")
         torch.cuda.synchronize()
         secs[which].append(time.perf_counter() - t0)
         n = (ljop.lj_log_prob_and_force.launches - before[0], ljop._lj_scalar.launches - before[1])
-        if n != ((0, want) if which == "first" else (want, 0)):
+        if n != ((0, 18027) if which == "first" else (18027, 0)):
             fail(f"the train set by the {which} K1 launched (new, first) = {n} K1s")
-    print(f"[phase 11] train set, 4,000 warmup steps, by each K1 in turns (first, new, new, "
-          f"first; {want:,} launches each): "
-          + ", ".join(f"{w} {' / '.join(f'{v:.2f}' for v in secs[w])} s" for w in secs))
+    print("[phase 11] train set by each K1 in turns (first, new, new, first; 18,027 launches "
+          "each): " + ", ".join(f"{w} {' / '.join(f'{v:.2f}' for v in secs[w])} s"
+                                for w in secs))
 
 
 def layer0_inputs(tr, x_flat):
@@ -2247,8 +2242,8 @@ def aldp_train_cfg(tmp, data_dir, **kw):
     """The aldp preset at its full width (DiT3D hidden 128, cond 128, 8
     heads, 6 blocks, bf16 block stack), cut in count only: 2 epochs of 10
     batches of 2,048, then one rung transition 1,200 -> 755.95 K filled at
-    512 chains x 50 steps (the preset's exact mode: D VJPs for the DiT;
-    resampling to step 40 of 50 as 800 of 1,000) with its 5 adaptive MALA
+    512 chains x 100 steps (the preset's exact mode: D VJPs for the DiT;
+    resampling to step 80 of 100 as 800 of 1,000) with its 5 adaptive MALA
     steps and no escalated retry."""
     from pita_torch.configs import compose
 
@@ -2258,8 +2253,8 @@ def aldp_train_cfg(tmp, data_dir, **kw):
         "trainer.num_epochs_per_temp": (2, 200, 200),
         "trainer.num_temp_annealed_samples": 512,
         "trainer.transition_fill_max_retries": 0,
-        "integrator.num_integration_steps": 50,
-        "integrator.end_resampling_step": 40,
+        "integrator.num_integration_steps": 100,
+        "integrator.end_resampling_step": 80,
         "logger": ("csv",), **kw})
 
 
@@ -2326,8 +2321,7 @@ def phase_peptide_ladder(kernels, tmp, data_dir):
     print(f"[phase 13] fit, 2 epochs x {cfg.trainer.n_train_batches_per_epoch} steps and the "
           f"transition fill: {t_fit:.2f} s; training {step_ms:.1f} ms a step (the first epoch "
           f"{1e3 * times['train'][0] / (n_steps // 2):.1f}); fill {t_fill:.2f} s (512 chains x "
-          f"{n_fill // 2} steps and the 512-chain pass without resampling, "
-          f"{1e3 * t_fill / n_fill:.1f} ms "
+          f"100 steps and the 512-chain pass without resampling, {1e3 * t_fill / n_fill:.1f} ms "
           f"a step with MALA and the energies); eval hook {t_hook:.2f} s; rung-1 buffer {buf1} "
           f"rows; kernel launches {counts}")
     print("[phase 13] losses by epoch " + "; ".join(
@@ -2536,7 +2530,7 @@ def oracle_run(mode_kw, seed, n_chains=2048):
 
 def phase_oracle_runs(kernels):
     """Phase 14.1: the five oracle runs held to the test's bounds, then
-    hutch_ess_k10 over 4 seeds: the W2 range and the count of far-off
+    hutch_ess_k10 over 8 seeds: the W2 range and the count of far-off
     samples (log-density under p² below the lowest of 2,048 exact draws).
     No kernel may launch."""
     out = {}
@@ -2556,13 +2550,13 @@ def phase_oracle_runs(kernels):
         out[f"{name}_s"] = wall
         out[f"{name}_w2"] = st["w2"]
     w2s, far = [], []
-    for seed in range(1, 5):
+    for seed in range(1, 9):
         st, _ = oracle_run(ORACLE_MODES["hutch_ess_k10"][0], seed=seed)
         w2s.append(st["w2"])
         far.append(st["far"])
-    print(f"[phase 14] hutch_ess_k10 over seeds 1-4: W2 {min(w2s):.3f} to {max(w2s):.3f} "
+    print(f"[phase 14] hutch_ess_k10 over seeds 1-8: W2 {min(w2s):.3f} to {max(w2s):.3f} "
           f"({', '.join(f'{w:.2f}' for w in w2s)}); far-off samples by seed {far}, "
-          f"{sum(far)} of {4 * 2048}")
+          f"{sum(far)} of {8 * 2048}")
     counts = {f.__name__: f.launches for f in kernels}
     if any(counts.values()):
         fail(f"the oracle runs launched a kernel: {counts}")
@@ -3044,13 +3038,14 @@ def phase_sharded_sampling(kernels, wl, group):
         out[f"{key}_rate_sharded"] = rates["sharded"]
         out[f"{key}_launches"] = ln
     # what a collective costs: a resampling step of the sharded sampler makes
-    # 7 gathers (the clamp's, the weights', the state's, the carried
-    # divergence's, three diagnostics'), a MALA step 2 all-reduces
-    v, xs = torch.randn(2048, device="cuda"), torch.randn(2048, 165, device="cuda")
+    # 4 gathers (the clamp's, the weights', the state's with the carried
+    # divergence as one more column, the three diagnostics' stacked), another
+    # step 2, a MALA step 1 all-reduce
+    v, xs = torch.randn(2048, device="cuda"), torch.randn(2048, 166, device="cuda")
     one = torch.ones((), dtype=torch.int64, device="cuda")
     for key, label, fn in (
             ("gather_weights", "all_gather of 2,048 floats", lambda: group.gather_rows(v)),
-            ("gather_state", "all_gather of 2,048 x 165 floats", lambda: group.gather_rows(xs)),
+            ("gather_state", "all_gather of 2,048 x 166 floats", lambda: group.gather_rows(xs)),
             ("sum", "all_reduce of one integer", lambda: group.sum(one))):
         us, ev = host_us(fn, n=500), cuda_ms(fn, reps=200) * 1e3
         print(f"[phase 15] NCCL at world 1, {label}: {us:.1f} us of host time a call (no "

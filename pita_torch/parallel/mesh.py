@@ -23,9 +23,6 @@ import torch.distributed as dist
 
 from pita_torch.utils.device import resolve_device
 
-# all_gather_into_tensor was renamed; take whichever this torch has
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-
 
 @dataclasses.dataclass(frozen=True)
 class ChainGroup:
@@ -54,7 +51,7 @@ class ChainGroup:
         src = t.movedim(dim, 0).contiguous()
         out = torch.empty((self.world_size * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                           device=src.device)
-        _all_gather(out, src)
+        dist.all_gather_into_tensor(out, src)
         return out.movedim(0, dim)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -68,18 +65,18 @@ def make_group(init_method: Optional[str] = None, world_size: int = 1, rank: int
                device=None) -> ChainGroup:
     """This process's rank of a group of ``world_size`` processes.
 
-    ``device`` defaults to ``cuda:<rank mod GPUs>`` (raising without a GPU);
-    the backend is NCCL on CUDA and gloo on the CPU. The default process
+    ``device`` defaults to ``cuda:<group rank mod GPUs>`` (raising without a
+    GPU); the backend is NCCL on CUDA and gloo on the CPU. The default process
     group is made from ``init_method`` (``tcp://host:port`` or
     ``file://path``; nothing tells a process of a cluster) unless it exists
     already, in which case its rank and size are used.
     """
-    if device is None:
-        device = f"cuda:{rank % max(torch.cuda.device_count(), 1)}"
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
     if not dist.is_initialized():
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method=init_method, world_size=world_size, rank=rank)
+    if dev.type == "cuda":
+        if device is None:
+            dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     return ChainGroup(dist.get_rank(), dist.get_world_size(), dev)

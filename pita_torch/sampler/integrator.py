@@ -170,16 +170,24 @@ def _all(group, v):
     return v if group is None else group.gather_rows(v)
 
 
-def _pick(group, v, choice):
-    """The rows ``choice`` (global indices) of the chains' ``v``, this rank's
-    share of them."""
+def _pick(group, choice, *vs):
+    """The rows ``choice`` (global indices) of each of the chains' ``vs``,
+    this rank's share of them: one gather with a group."""
     if group is None:
-        return v[choice]
-    return group.gather_rows(v)[group.shard(choice)]
+        return [v[choice] for v in vs]
+    cols = [v.reshape(v.shape[0], -1) for v in vs]
+    rows = group.gather_rows(torch.cat(cols, 1))[group.shard(choice)]
+    return [r.reshape(v.shape) for r, v in zip(rows.split([c.shape[1] for c in cols], 1), vs)]
 
 
-def _std(v, like, group=None):
-    return torch.zeros((), device=like.device) if v is None else _all(group, v).std(correction=0)
+def _stds(vs, like, group=None):
+    """The population std over all chains of each per-chain vector of
+    ``vs`` (0 for a None): one gather with a group."""
+    present = [v for v in vs if v is not None]
+    if group is not None and present:
+        rows = iter(group.gather_rows(torch.stack(present), dim=1).contiguous())
+        vs = [None if v is None else next(rows) for v in vs]
+    return [torch.zeros((), device=like.device) if v is None else v.std(correction=0) for v in vs]
 
 
 def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_schedule,
@@ -258,18 +266,19 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
             if cfg.ess_resampling_threshold is not None:
                 ess = effective_sample_size(a_all, normalize=True)
                 fire = ess < cfg.ess_resampling_threshold
-            x_next = torch.where(fire, _pick(group, x_next, choice), x_next)
-            a_next = torch.where(fire, torch.zeros_like(a_next), a_next)
             # the carried divergence follows its chain through resampling
-            div_new = torch.where(fire, _pick(group, div_new, choice), div_new)
+            x_pick, div_pick = _pick(group, choice, x_next, div_new)
+            x_next = torch.where(fire, x_pick, x_next)
+            a_next = torch.where(fire, torch.zeros_like(a_next), a_next)
+            div_new = torch.where(fire, div_pick, div_new)
             n_unique = torch.where(fire, count_unique(choice, B_all), full_B)
 
         x, a, div_c = x_next, a_next, div_new
         lw_rows.append(a)
         nu_rows.append(n_unique)
-        stats["divergence"].append(_std(terms.divergence, x, group))
-        stats["cross_term"].append(_std(terms.cross_term, x, group))
-        stats["dUt_dt"].append(_std(terms.dUt_dt, x, group))
+        for k, v in zip(stats, _stds((terms.divergence, terms.cross_term, terms.dUt_dt), x,
+                                     group)):
+            stats[k].append(v)
 
     if cfg.resample_at_end and weights_on and resampling_interval < n:
         # final resample against the true target, the learned energy as the
@@ -283,7 +292,7 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
         a_end = _all(group, target.log_prob(x) - logq0 + a)
         a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))
         choice = systematic_resample(a_end, draws.end_u0())
-        x = _pick(group, x, choice)
+        (x,) = _pick(group, choice, x)
         lw_rows.append(a_end if group is None else group.shard(a_end))
         nu_rows.append(count_unique(choice, B_all))
 

@@ -160,15 +160,11 @@ def prioritised_add(buf: PrioritisedBuffer, x, log_w, log_q) -> PrioritisedBuffe
     return buf._replace(pos=(buf.pos + n) % cap, size=min(buf.size + n, cap))
 
 
-def prioritised_sample(buf: PrioritisedBuffer, batch_size: int, gumbel=None, generator=None):
+def prioritised_sample(buf: PrioritisedBuffer, batch_size: int, gumbel: torch.Tensor):
     """``batch_size`` distinct rows drawn ∝ exp(log w) among the filled ones:
-    the top k of log w + Gumbel noise. ``gumbel`` (capacity,) standard
-    Gumbel draws, else drawn from ``generator``. Returns (x, log w, log q,
-    idx)."""
+    the top k of log w + ``gumbel``, (capacity,) standard Gumbel draws.
+    Returns (x, log w, log q, idx)."""
     cap = buf.x.shape[0]
-    if gumbel is None:
-        u = torch.rand(cap, generator=generator, device=buf.x.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     valid = torch.arange(cap, device=buf.x.device) < buf.size
     logits = torch.where(valid, buf.log_w, -float("inf"))
     idx = torch.topk(logits + gumbel.to(logits), batch_size).indices

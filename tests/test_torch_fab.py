@@ -4,6 +4,8 @@ JAX's draws replayed, the prioritised buffer, the eight losses and their
 gradients, one outer iteration of the prioritised-buffer loop; and the ports
 of tests/test_fab.py's log-Z and mixing checks at their bounds."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,19 +47,40 @@ def close(got, ref, tol, what=""):
     assert err <= tol * scale, (what, err, scale)
 
 
+@functools.partial(jax.jit, static_argnums=1)
+def _sweep_keys(key, n_steps):
+    return jax.vmap(jax.random.split)(jax.random.split(key, n_steps))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _sweep_draws(keys, uniform, shape):
+    """Every sweep's draws of one kind at once (vmap over the keys gives
+    each key's draws bit for bit)."""
+    if uniform:
+        return jax.vmap(lambda k: jax.random.uniform(k[1], shape))(keys)
+    return jax.vmap(lambda k: jax.random.normal(k[0], shape, jnp.float32))(keys)
+
+
 class JaxSweeps:
     """The draws of pita_tpu's transition sweeps from ``key``: the key split
     into one per sweep, each split into (proposal or momentum, accept
-    test) (transition_operators.py:28-37,81-87)."""
+    test) (transition_operators.py:28-37,81-87). Each kind is made for all
+    sweeps in one call, op by op each would compile alone."""
 
     def __init__(self, key, n_steps):
-        self.keys = [jax.random.split(k) for k in jax.random.split(key, n_steps)]
+        self.keys = _sweep_keys(key, n_steps)
+        self.made = {}
+
+    def _draw(self, uniform, step, shape):
+        if (uniform, shape) not in self.made:
+            self.made[uniform, shape] = np.asarray(_sweep_draws(self.keys, uniform, shape))
+        return torch.as_tensor(self.made[uniform, shape][step])
 
     def normal(self, step, shape):
-        return t(jax.random.normal(self.keys[step][0], shape, jnp.float32))
+        return self._draw(False, step, tuple(shape))
 
     def uniform(self, step, shape):
-        return t(jax.random.uniform(self.keys[step][1], shape))
+        return self._draw(True, step, tuple(shape))
 
 
 class JaxFabDraws:
@@ -85,14 +108,21 @@ class JaxFabDraws:
         return t(jax.random.gumbel(self.gumbel_keys.pop(0), shape))
 
 
-def _perturbed_flow(dim, n_coupling, hidden, seed, scale=0.3):
+@functools.lru_cache(maxsize=None)
+def _jax_flow(dim, n_coupling, hidden, seed, scale):
     """A pita_tpu flow with every weight perturbed (its last layers are zero
-    at init, the identity), and the port's flow with the same weights."""
+    at init, the identity); made once for each set of arguments."""
     jf = JaxFlow(dim, n_coupling=n_coupling, hidden=hidden)
     params = jax.jit(jf.init)(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
     params = jax.tree.map(lambda a: jnp.asarray(np.asarray(a) + scale * rng.normal(size=a.shape),
                                                 jnp.float32), params)
+    return jf, params
+
+
+def _perturbed_flow(dim, n_coupling, hidden, seed, scale=0.3):
+    """``_jax_flow``'s flow, and a fresh port flow with the same weights."""
+    jf, params = _jax_flow(dim, n_coupling, hidden, seed, scale)
     tf = FlowDistribution(dim, n_coupling=n_coupling, hidden=hidden, device="cpu")
     tf.module.load_state_dict(fab_flow_params_from_tree(jax.tree.map(np.asarray, params)))
     return jf, params, tf
@@ -101,22 +131,26 @@ def _perturbed_flow(dim, n_coupling, hidden, seed, scale=0.3):
 def test_flow_forward_inverse_and_log_prob_match_jax():
     """Within 1e-5 of the largest value: forward and inverse maps and their
     log-dets, log_prob and a sample's log q, on perturbed weights."""
-    jf, params, tf = _perturbed_flow(4, 4, 16, seed=0, scale=0.15)
+    jf, params, tf = _perturbed_flow(4, 2, 16, seed=0, scale=0.15)
     rng = np.random.default_rng(1)
     z = rng.normal(size=(64, 4)).astype(np.float32)
-    x_ref, ld_ref = jax.jit(jf.module.apply)(params, jnp.asarray(z))
+    key = jax.random.PRNGKey(2)
+
+    @jax.jit  # the references in one program: op by op, each primitive compiles alone
+    def refs(p, z, k):
+        x, ld = jf.module.apply(p, z)
+        return (x, ld, *jf.module.apply(p, x, method="inverse"), jf.log_prob(p, x),
+                *jf.sample_and_log_prob(p, k, 32))
+
+    x_ref, ld_ref, zi_ref, ldi_ref, lp_ref, xs_ref, lq_ref = refs(params, jnp.asarray(z), key)
     x, ld = tf.module(t(z))
     close(x.detach(), x_ref, 1e-5, "forward")
     close(ld.detach(), ld_ref, 1e-5, "forward logdet")
-    zi_ref, ldi_ref = jax.jit(lambda p, x: jf.module.apply(p, x, method="inverse"))(params,
-                                                                                    x_ref)
     zi, ldi = tf.module.inverse(t(x_ref))
     close(zi.detach(), zi_ref, 1e-5, "inverse")
     close(ldi.detach(), ldi_ref, 1e-5, "inverse logdet")
     np.testing.assert_allclose(zi.detach().numpy(), z, atol=1e-5)  # inverse of forward
-    close(tf.log_prob(t(x_ref)).detach(), jax.jit(jf.log_prob)(params, x_ref), 1e-5, "log_prob")
-    key = jax.random.PRNGKey(2)
-    xs_ref, lq_ref = jax.jit(lambda p, k: jf.sample_and_log_prob(p, k, 32))(params, key)
+    close(tf.log_prob(t(x_ref)).detach(), lp_ref, 1e-5, "log_prob")
     xs, lq = tf.sample_and_log_prob(32, eps=t(jax.random.normal(key, (32, 4))))
     close(xs.detach(), xs_ref, 1e-5, "sample")
     close(lq.detach(), lq_ref, 1e-5, "sample log q")
@@ -201,24 +235,27 @@ def test_prioritised_buffer_matches_jax():
     24 with JAX's Gumbel draws (the same rows), an adjust of the sampled
     rows and of all rows (non-finite killed): every field equal."""
     rng = np.random.default_rng(6)
+    # pita_tpu's buffer functions jitted: op by op, each primitive compiles alone
+    j_add, j_adjust = jax.jit(jbuf.prioritised_add), jax.jit(jbuf.prioritised_adjust)
     jb, tb = jbuf.prioritised_init(64, 3), prioritised_init(64, 3)
     for n in (40, 40):
         x = rng.normal(size=(n, 3)).astype(np.float32)
         lw, lq = (rng.normal(size=n) * 3).astype(np.float32), rng.normal(size=n).astype(np.float32)
-        jb = jbuf.prioritised_add(jb, jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lq))
+        jb = j_add(jb, jnp.asarray(x), jnp.asarray(lw), jnp.asarray(lq))
         tb = prioritised_add(tb, t(x), t(lw), t(lq))
     key = jax.random.PRNGKey(7)
-    ref = jbuf.prioritised_sample(jb, key, 24)
-    got = prioritised_sample(tb, 24, gumbel=t(jax.random.gumbel(key, (64,))))
+    ref, gumbel = jax.jit(lambda b, k: (jbuf.prioritised_sample(b, k, 24),
+                                        jax.random.gumbel(k, (64,))))(jb, key)
+    got = prioritised_sample(tb, 24, t(gumbel))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
     for a, b in zip(got[:3], ref[:3]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     new_q = rng.normal(size=24).astype(np.float32)
     new_q[0] = np.inf
-    jb = jbuf.prioritised_adjust(jb, jnp.asarray(new_q), ref[3])
+    jb = j_adjust(jb, jnp.asarray(new_q), ref[3])
     tb = prioritised_adjust(tb, t(new_q), got[3])
     everything = rng.normal(size=64).astype(np.float32)
-    jb = jbuf.prioritised_adjust(jb, jnp.asarray(everything))
+    jb = j_adjust(jb, jnp.asarray(everything))
     tb = prioritised_adjust(tb, t(everything))
     for f in ("x", "log_w", "log_q"):
         np.testing.assert_allclose(getattr(tb, f).numpy(), np.asarray(getattr(jb, f)), rtol=1e-6,
@@ -237,17 +274,21 @@ def _gauss_lp(mod, mean=1.5, scale=0.7):
 @pytest.mark.parametrize("loss_type", LOSS_TYPES)
 def test_loss_value_and_gradient_match_jax(loss_type):
     """Each FABModel loss on a perturbed 2-D flow (2 couplings, hidden 8),
-    batch 32, AIS over 2 intermediate distributions with JAX's draws: the
+    batch 32, AIS over 2 intermediate distributions of Metropolis sweeps
+    (HMC's AIS is held against JAX's in the AIS cases and in the loop
+    iteration below; in a loss its compile is 3 s) with JAX's draws: the
     value within 1e-5 (relative) and every weight gradient within 1e-4 of
     its tensor's largest entry."""
     jf, params, tf = _perturbed_flow(2, 2, 8, seed=8, scale=0.2)
     key = jax.random.PRNGKey(9)
     data = np.random.default_rng(10).normal(1.5, 0.7, size=(32, 2)).astype(np.float32)
-    jcfg = JaxFABConfig(loss_type=loss_type, batch_size=32, n_intermediate_distributions=2)
+    kw = dict(loss_type=loss_type, batch_size=32, n_intermediate_distributions=2,
+              transition="metropolis")
+    jcfg = JaxFABConfig(**kw)
     loss_ref, g_ref = jax.jit(jax.value_and_grad(
         lambda p: jax_fab_loss(jf, p, _gauss_lp(jnp), key, jcfg, data=jnp.asarray(data))))(params)
     draws = JaxFabDraws(key, 3, 5, flow=loss_type.startswith("flow_"))
-    cfg = FABConfig(loss_type=loss_type, batch_size=32, n_intermediate_distributions=2)
+    cfg = FABConfig(**kw)
     loss = fab_loss(tf, _gauss_lp(torch_ops), cfg, draws, data=t(data))
     assert np.isfinite(float(loss_ref))
     assert float(loss.detach()) == pytest.approx(float(loss_ref), rel=1e-5, abs=1e-6)

@@ -5,10 +5,12 @@ one-process port and against pita_tpu.parallel on its 8-device CPU mesh
 
 The ranks are spawned processes that run tests/torch_parallel_workers.py
 (torch and pita_torch only) through a file store in tmp_path: no port is
-opened, so the suite's parallel workers do not collide. One spawn per world
-size runs every case; each test reads its case's results.
+opened, so the suite's parallel workers do not collide. One spawn starts the
+ranks of both world sizes while the JAX inputs and references are made; each
+rank runs every case, and each test reads its case's results.
 """
 
+import os
 import time
 
 import jax
@@ -59,9 +61,24 @@ def _flat(tree_s, tree_e):
 
 
 @pytest.fixture(scope="module")
-def inputs():
-    """Every case's inputs from JAX (prior samples, draws, weights, data)
-    and its references."""
+def spawned(tmp_path_factory):
+    """The ranks of both world sizes, started before their inputs exist so
+    that their start-up overlaps the JAX side; (directory, process context)."""
+    out = tmp_path_factory.mktemp("ranks")
+    for ws in W.WORLD_SIZES:
+        (out / f"ranks{ws}").mkdir()
+    ctx = mp.start_processes(W.run_process, args=(str(out), SPAWN_TIMEOUT_S),
+                             nprocs=sum(W.WORLD_SIZES), join=False, start_method="spawn")
+    yield out, ctx
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+
+
+@pytest.fixture(scope="module")
+def inputs(spawned):
+    """Every case's inputs from JAX (prior samples, draws, weights, data),
+    written for the ranks, then its JAX references."""
     rng = jax.random.PRNGKey(0)
     k_prior, k_int = jax.random.split(rng)
     anneal = JaxConst(annealing_factor=W.ANNEAL)
@@ -78,12 +95,6 @@ def inputs():
          "u0": np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (), jnp.float32))(k_res)),
          "end_u0": jd.end_u0().numpy()}
     np.testing.assert_array_equal(z["noise"][7], jd.noise(7, (B_GAUSS, 2)).numpy())
-    jcfg = JaxConfig(**W.GAUSS_CFG)
-    args = (JaxAnalyticScore(), JaxAnalyticEnergy(), {}, {}, sched, anneal, JaxGaussian(), 1.0,
-            jcfg)
-    # the JAX references jitted whole: op by op, each primitive compiles alone
-    refs = {"jax_single": jax.jit(lambda k, x: jax_integrate(k, x, *args))(k_int, x1),
-            "jax_sharded": jax_sharded_integrate(make_mesh(8), k_int, x1, *args)}
 
     # the data-parallel step of tests/test_parallel.py:65-101
     gmm = JaxGMM()
@@ -110,11 +121,6 @@ def inputs():
     # target-score subset, the rest far outside it; the ranks' subsets differ
     ln = np.where(np.arange(B_DP) < 3 * B_DP // 8, -2.5, 1.5)
     z["mask.ln_sigma_draw"] = (ln + 0.1 * z["mask.ln_sigma_draw"]).astype(np.float32)
-    opt = optax.adam(1e-3)
-    step = jax_dp_step(make_mesh(8, axis_name="dp"), sw, ew, sched, JaxLossConfig(), opt)
-    ps_dp, pe_dp, _, aux_dp = step(ps, pe, opt.init((ps, pe)), k_loss, x0, e0, f0,
-                                   jnp.asarray(1.0))
-    refs["jax_dp"] = (_flat(ps_dp, pe_dp), float(aux_dp["loss"]))
 
     rb = np.random.default_rng(7)
     z["buf_capacity"] = np.array(512)
@@ -122,25 +128,35 @@ def inputs():
         z[f"buf{r}.x"] = rb.normal(size=(100, DIM_BUF)).astype(np.float32)
         z[f"buf{r}.e"] = rb.normal(size=100).astype(np.float32)
         z[f"buf{r}.f"] = rb.normal(size=(100, DIM_BUF)).astype(np.float32)
+    out, _ = spawned
+    np.savez(out / "inputs_partial.npz", **z)
+    os.replace(out / "inputs_partial.npz", out / "inputs.npz")  # the ranks start on it
+
+    # the JAX references, made while the ranks run; jitted whole: op by op,
+    # each primitive compiles alone
+    args = (JaxAnalyticScore(), JaxAnalyticEnergy(), {}, {}, sched, anneal, JaxGaussian(), 1.0,
+            JaxConfig(**W.GAUSS_CFG))
+    refs = {"jax_single": jax.jit(lambda k, x: jax_integrate(k, x, *args))(k_int, x1),
+            "jax_sharded": jax_sharded_integrate(make_mesh(8), k_int, x1, *args)}
+    opt = optax.adam(1e-3)
+    step = jax_dp_step(make_mesh(8, axis_name="dp"), sw, ew, sched, JaxLossConfig(), opt)
+    ps_dp, pe_dp, _, aux_dp = step(ps, pe, opt.init((ps, pe)), k_loss, x0, e0, f0,
+                                   jnp.asarray(1.0))
+    refs["jax_dp"] = (_flat(ps_dp, pe_dp), float(aux_dp["loss"]))
     return z, refs
 
 
-@pytest.fixture(scope="module", params=[2, 4])
-def ranks(request, inputs, tmp_path_factory):
-    """Spawn the ranks of one world size; returns (world size, a reader of
-    ``<case>_<rank>.npz``)."""
-    ws = request.param
-    out = tmp_path_factory.mktemp(f"ranks{ws}")
-    np.savez(out / "inputs.npz", **inputs[0])
-    ctx = mp.start_processes(W.run_rank, args=(ws, str(out)), nprocs=ws, join=False,
-                             start_method="spawn")
+@pytest.fixture(scope="module", params=W.WORLD_SIZES)
+def ranks(request, inputs, spawned):
+    """The ranks' results of one world size, once every rank has finished:
+    (world size, a reader of ``<case>_<rank>.npz``)."""
+    out, ctx = spawned
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
     while not ctx.join(timeout=2):
         if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            pytest.fail(f"the {ws} ranks did not finish in {SPAWN_TIMEOUT_S} s")
-    return ws, lambda case, r: np.load(out / f"{case}_{r}.npz")
+            pytest.fail(f"the ranks did not finish in {SPAWN_TIMEOUT_S} s")
+    ws = request.param
+    return ws, lambda case, r: np.load(out / f"ranks{ws}" / f"{case}_{r}.npz")
 
 
 def _gauss_port(z):

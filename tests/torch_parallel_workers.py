@@ -1,12 +1,14 @@
 """Rank processes for tests/test_torch_parallel.py.
 
-Each rank joins a gloo group through a file store, runs every case on the
-inputs the test wrote (``inputs.npz``) and writes what it got to
-``<case>_<rank>.npz`` beside them. This module imports torch and
+The test starts the ranks of both world sizes at once. Each rank joins its
+world's gloo group through a file store, runs every case on the inputs the
+test wrote (``inputs.npz``) and writes what it got to ``<case>_<rank>.npz``
+in its world's directory. This module imports torch and
 pita_torch only, so the ranks start without JAX. It is not a test file.
 """
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -149,12 +151,32 @@ def buffer_rounds(z):
             + (torch.as_tensor(z[f"buf{r}.e"]) < 0.5,) for r in range(3)]
 
 
-def run_rank(rank, world_size, out_dir):
+WORLD_SIZES = (2, 4)
+
+
+def run_process(i, out_root, timeout_s):
+    """Process ``i`` of sum(WORLD_SIZES): rank i of the first world, then
+    the ranks of the next, each world in ``<out_root>/ranks<W>``. It waits up
+    to ``timeout_s`` for ``<out_root>/inputs.npz``, which the test writes
+    while the processes start."""
+    for ws in WORLD_SIZES:
+        if i < ws:
+            break
+        i -= ws
+    inputs = os.path.join(out_root, "inputs.npz")
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(inputs):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no {inputs} after {timeout_s} s")
+        time.sleep(0.05)
+    run_rank(i, ws, os.path.join(out_root, f"ranks{ws}"), np.load(inputs))
+
+
+def run_rank(rank, world_size, out_dir, z):
     """Every case on one rank."""
     torch.set_num_threads(1)
     group = make_group(f"file://{os.path.join(out_dir, 'store')}", world_size, rank,
                        device="cpu")
-    z = np.load(os.path.join(out_dir, "inputs.npz"))
     save = lambda case, **kw: np.savez(os.path.join(out_dir, f"{case}_{rank}.npz"), **kw)
 
     res = gaussian_run(group, torch.as_tensor(z["x1"]), GAUSS_CFG,
