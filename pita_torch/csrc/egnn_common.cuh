@@ -2,7 +2,8 @@
 // scalar helpers and the per-edge chain of pita_tpu/ops/pallas/egnn_fwd.py:85-136
 // _layer_step. Included by egnn_layer.cu (K2 forward, K3 VJP), egnn_tangent.cu
 // (K4 tangent) and the tensor-core kernels egnn_layer_tc.cu and
-// egnn_tangent_tc.cu, which also share TcOff, their bf16 weight layout.
+// egnn_tangent_tc.cu, which also share TcOff, their bf16 weight layout, and
+// the f32 tensor-core kernels egnn_layer_f32tc.cu and egnn_tangent_f32tc.cu.
 
 #pragma once
 
@@ -89,6 +90,12 @@ __device__ __forceinline__ float rnd(float v, int bf) {
 __device__ __forceinline__ float sigm(float z) {
   const float e = expf(-fabsf(z));
   return (z >= 0.f ? 1.f : e) / (1.f + e);
+}
+
+// the same in two SFU operations (ex2 and rcp): ~1e-6 relative for |z| < 20
+__device__ __forceinline__ float sigm_fast(float z) {
+  const float e = __expf(-fabsf(z));
+  return __fdividef(z >= 0.f ? 1.f : e, 1.f + e);
 }
 
 // logistic in one SFU operation: sigma(z) = 1/2 + tanh(z/2) / 2; saturates

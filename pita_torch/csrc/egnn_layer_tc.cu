@@ -66,11 +66,6 @@ size_t tc_smem_floats(int N) {
   return (size_t)2 * F * FS + 6 * F + 4 + (size_t)N * (3 * F + 2 * FS) + 3 * pad4(3 * N);
 }
 
-__device__ __forceinline__ float sigm_fast(float z) {
-  const float e = __expf(-fabsf(z));
-  return __fdividef(z >= 0.f ? 1.f : e, 1.f + e);
-}
-
 struct Smem {
   const __nv_bfloat16 *e2f, *c1f, *e2b, *c1b;
   const float *wr, *we, *be2, *watt, *bc1, *wc2, *batt;

@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from pita_torch.io.flax_params import W_FIELDS
-from pita_torch.ops.egnn_layer import EGCLFunction, layer_step, pack_weights, pack_weights_tc
+from pita_torch.ops.egnn_layer import (EGCLFunction, layer_step, pack_weights, pack_weights_tc,
+                                       pack_weights_tf32)
 
 ROUTES = ("kernels", "autograd")
 
@@ -97,13 +98,20 @@ class EGCL(nn.Module):
 
     def packed(self, device, tc: bool = False) -> torch.Tensor:
         """The kernels' packed weight buffer on ``device`` (with ``tc`` the
-        bf16 one of the tensor-core VJP), rebuilt when a weight changes: an
-        in-place update (an optimizer step, ``copy_``) bumps its version."""
+        tensor-core kernels' matrices: bf16 ones for a bf16 layer, TF32 hi + lo
+        for an f32 one), rebuilt when a weight changes: an in-place update (an
+        optimizer step, ``copy_``) bumps its version."""
         stamp = tuple((p.data_ptr(), p._version) for p in self.weights().values())
         hit = self._packed.get((device, tc))
         if hit is None or hit[0] != stamp:
             w = self.weights()
-            buf = (pack_weights_tc(w) if tc else pack_weights(w, self.cfg["cd"])).to(device)
+            if not tc:
+                buf = pack_weights(w, self.cfg["cd"])
+            elif self.cfg["cd"] == torch.bfloat16:
+                buf = pack_weights_tc(w)
+            else:
+                buf = pack_weights_tf32(w)
+            buf = buf.to(device)
             hit = self._packed[(device, tc)] = (stamp, buf)
         return hit[1]
 

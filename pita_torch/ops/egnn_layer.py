@@ -14,11 +14,16 @@ compute dtype, f32 accumulation, elementwise math in f32. In the VJP the
 rounding counts as the identity (straight-through), so cotangents stay f32.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it runs
-the plain version. K2 and K3 each have two kernels, chosen by the compute
-dtype: bf16 runs the tensor-core kernels of ``csrc/egnn_layer_tc.cu``
-(``egnn_layer_forward_tc``, ``egnn_layer_backward_tc``), f32 the scalar
-``egcl_fwd_kernel`` and ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``, which
-stay the kernels of record for f32 (tensor cores would change f32 results).
+the plain version. The compute dtype and the shape choose the kernel:
+
+- bf16: the tensor-core kernels of ``csrc/egnn_layer_tc.cu``
+  (``egnn_layer_forward_tc``, ``egnn_layer_backward_tc``; N <= 64, else
+  ``ValueError``);
+- f32 K2: the 3xTF32 tensor-core kernel of ``csrc/egnn_layer_f32tc.cu``
+  (``egnn_layer_forward_tf32``) where ``tf32_takes(N, F)``, F in (16, 32) and
+  N <= 64 (the lj13 and lj55 presets), else the scalar ``egcl_fwd_kernel`` of
+  ``csrc/egnn_layer.cu`` (``_forward_scalar``);
+- f32 K3: the scalar ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``.
 """
 
 import ctypes
@@ -165,6 +170,51 @@ def pack_weights_tc(w) -> torch.Tensor:
     return torch.cat([torch.nn.functional.pad(m, (0, 8)).reshape(-1) for m in mats]).contiguous()
 
 
+def tf32_split(a):
+    """``a`` (f32) as ``hi + lo``: hi rounded to TF32 (10 mantissa bits, to
+    nearest, ties away from zero), lo = a - hi rounded the same way. Both are
+    exact TF32 values (their low 13 bits are 0); hi + lo is a to ~2^-21."""
+    def rnd(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    a = a.detach().float()
+    hi = rnd(a)
+    return hi, rnd(a - hi)
+
+
+def _frag_tf32(m):
+    """M (K, NO) in the fragment layout of ``csrc/mma_tf32.cuh``, flattened:
+    for each (n-tile, k-step, lane = 4 g + t) the four floats hi M[k][n],
+    hi M[k + 1][n], lo M[k][n], lo M[k + 1][n], k = 8 ks + 2 t, n = 8 nt + g."""
+    K, NO = m.shape
+    hi, lo = tf32_split(m)
+    # k = 8 ks + 2 t + e and n = 8 nt + g, to the order (nt, ks, g, t, e)
+    frag = lambda v: v.reshape(K // 8, 4, 2, NO // 8, 8).permute(3, 0, 4, 1, 2)
+    return torch.cat([frag(hi), frag(lo)], -1).reshape(-1)
+
+
+def pack_weights_tf32(w) -> torch.Tensor:
+    """The f32 matrices of the 3xTF32 kernels (``egnn_layer_forward_tf32``,
+    ``egnn_tangent.egnn_layer_tangent_tf32``) in the layout of
+    ``csrc/mma_tf32.cuh:tfoff``: W_e2, W_c1, W_c1^T, [W_src | W_dst], W_n1,
+    W_n2, each split into TF32 hi + lo and laid out by ``_frag_tf32``."""
+    e2, c1, ws, wd, n1, n2 = (w[f].detach().float()
+                              for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
+    mats = (e2, c1, c1.T, torch.cat([ws, wd], 1), n1, n2)
+    return torch.cat([_frag_tf32(m) for m in mats]).contiguous()
+
+
+# the largest N of the 3xTF32 kernels, mirrored from csrc/egnn_layer_f32tc.cu
+# and csrc/egnn_tangent_f32tc.cu: four 16-node tiles
+TF32_MAX_N = 64
+
+
+def tf32_takes(N: int, F: int) -> bool:
+    """The rule that sends an f32 K2 or K4 launch to its 3xTF32 tensor-core
+    kernel: F in (16, 32) and N <= 64; a larger N goes to the scalar kernel."""
+    return F in (16, 32) and N <= TF32_MAX_N
+
+
 @functools.cache
 def _lib():
     lib = _build.load("egnn_layer")
@@ -198,6 +248,20 @@ def _lib_tc():
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_forward_tc.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_tf32():
+    lib = _build.load("egnn_layer_f32tc")
+    lib.pita_egcl_tf32_weights_len.argtypes = [ctypes.c_int]
+    lib.pita_egcl_tf32_weights_len.restype = ctypes.c_int
+    lib.pita_egcl_tf32_max_n.argtypes = []
+    lib.pita_egcl_tf32_max_n.restype = ctypes.c_int
+    lib.pita_egcl_forward_tf32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_forward_tf32.restype = ctypes.c_int
     return lib
 
 
@@ -246,21 +310,29 @@ def egnn_layer_forward(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
 
     ``cfg``: attention, tanh, coords_range, cd. ``packed``: the output of
     ``pack_weights(w, cd)`` on the inputs' device, built here if not given.
-    On CUDA the compute dtype picks the kernel: bf16 runs the tensor-core
-    kernel (``egnn_layer_forward_tc``, ``packed_tc`` from ``pack_weights_tc``),
-    f32 the scalar kernel, whose launches this function counts.
+    On CUDA the compute dtype and the shape pick the kernel: bf16 runs the
+    tensor-core kernel (``egnn_layer_forward_tc``, ``packed_tc`` from
+    ``pack_weights_tc``); f32 the 3xTF32 tensor-core kernel
+    (``egnn_layer_forward_tf32``, ``packed_tc`` from ``pack_weights_tf32``)
+    where ``tf32_takes(N, F)`` (F in (16, 32), N <= 64), else the scalar
+    kernel, whose launches this function counts.
     """
-    if cfg.get("cd", torch.float32) == torch.bfloat16:
+    cd = cfg.get("cd", torch.float32)
+    if cd == torch.bfloat16:
         return egnn_layer_forward_tc(h, x, edge_attr, w, packed=packed, packed_tc=packed_tc,
                                      **cfg)
+    if cd == torch.float32 and tf32_takes(h.shape[-2], h.shape[-1]):
+        return egnn_layer_forward_tf32(h, x, edge_attr, w, packed=packed, packed_tc=packed_tc,
+                                       **cfg)
     return _forward_scalar(h, x, edge_attr, w, packed, **cfg)
 
 
 def _forward_scalar(h, x, edge_attr, w, packed=None, **cfg):
     """The scalar K2 (``egcl_fwd_kernel``) in either compute dtype, counted
-    on ``egnn_layer_forward.launches``: ``egnn_layer_forward``'s f32 route.
-    bf16 reaches it only when called directly, to time it against the
-    tensor-core kernel."""
+    on ``egnn_layer_forward.launches``: ``egnn_layer_forward``'s f32 route
+    for shapes ``tf32_takes`` refuses. The f32 shapes it takes and bf16 reach
+    it only when called directly, to time it against the tensor-core
+    kernels."""
     _check_inputs(h, x, edge_attr)
     if h.device.type == "cpu":
         with torch.no_grad():
@@ -335,6 +407,53 @@ def _tc_launch_args(h, w, packed, packed_tc, cfg, what):
     return lib, packed, packed_tc, (B, N, F, *args[4:])
 
 
+def _tf32_launch_args(h, w, packed, packed_tc, cfg, what):
+    """The leading arguments of a 3xTF32 launch: (packed, packed_tc, (B, N,
+    F, attention, tanh, coords_range)). Raises on a compute dtype other than
+    f32, on a shape ``tf32_takes`` refuses, or on a ``packed_tc`` that is not
+    ``pack_weights_tf32(w)`` on the inputs' device."""
+    B, N, F = h.shape
+    if cfg.get("cd", torch.float32) != torch.float32:
+        raise ValueError(f"the 3xTF32 EGCL {what} computes in f32 only")
+    if not tf32_takes(N, F):
+        raise ValueError(f"the 3xTF32 EGCL {what} takes F in (16, 32) and N <= {TF32_MAX_N}; "
+                         f"got F={F}, N={N}")
+    if packed is None:
+        packed = pack_weights(w).to(h.device)
+    if packed_tc is None:
+        packed_tc = pack_weights_tf32(w).to(h.device)
+    args = _kernel_args(h, packed, cfg, backward=None)
+    if (packed_tc.device != h.device or packed_tc.dtype != torch.float32
+            or not packed_tc.is_contiguous() or packed_tc.data_ptr() % 16
+            or packed_tc.numel() != _lib_tf32().pita_egcl_tf32_weights_len(F)):
+        raise ValueError(f"packed_tc must be pack_weights_tf32(w) for hidden width {F}, "
+                         "contiguous and 16-byte aligned on the inputs' device")
+    return packed, packed_tc, (B, N, F, *args[4:])
+
+
+def egnn_layer_forward_tf32(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
+    """K2 in f32 on tensor cores, its products in 3xTF32
+    (``csrc/egnn_layer_f32tc.cu``); returns (h_out, x_out). Takes F in (16,
+    32) and N up to 64; raises on anything else, and on a compute dtype other
+    than f32. On CPU tensors it runs the plain version, at any shape."""
+    _check_inputs(h, x, edge_attr)
+    if h.device.type == "cpu":
+        with torch.no_grad():
+            return layer_step(h, x, edge_attr, w, **cfg)
+    packed, packed_tc, args = _tf32_launch_args(h, w, packed, packed_tc, cfg, "forward")
+    h, x, edge_attr = (t.contiguous() for t in (h, x, edge_attr))
+    h_out, x_out = torch.empty_like(h), torch.empty_like(x)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib_tf32().pita_egcl_forward_tf32(
+            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), packed.data_ptr(),
+            packed_tc.data_ptr(), h_out.data_ptr(), x_out.data_ptr(), *args, stream,
+        )
+    _build.check(err, "egnn_layer_forward_tf32")
+    egnn_layer_forward_tf32.launches += 1
+    return h_out, x_out
+
+
 def _check_bf16(cfg, what):
     if cfg.get("cd", torch.float32) != torch.bfloat16:
         raise ValueError(f"the tensor-core EGCL {what} computes in bf16 only")
@@ -388,6 +507,7 @@ def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=No
 
 egnn_layer_forward.launches = 0
 egnn_layer_forward_tc.launches = 0
+egnn_layer_forward_tf32.launches = 0
 egnn_layer_backward.launches = 0
 egnn_layer_backward_tc.launches = 0
 
@@ -397,8 +517,8 @@ class EGCLFunction(torch.autograd.Function):
 
     The forward runs K2 and saves only its inputs; the backward runs K3,
     which rebuilds the edge tensors on chip; in bf16 both run their
-    tensor-core kernels. Weights get no gradient (inference only): a weight that requires
-    grad raises.
+    tensor-core kernels, in f32 the forward runs the 3xTF32 one. Weights get
+    no gradient (inference only): a weight that requires grad raises.
     """
 
     @staticmethod
@@ -407,10 +527,8 @@ class EGCLFunction(torch.autograd.Function):
             raise RuntimeError("EGCLFunction is inference-only: weights must not require grad")
         ctx.layer = layer
         ctx.save_for_backward(h, x, edge_attr)
-        tc = layer.cfg["cd"] == torch.bfloat16
         return egnn_layer_forward(h, x, edge_attr, layer.weights(), packed=layer.packed(h.device),
-                                  packed_tc=layer.packed(h.device, tc=True) if tc else None,
-                                  **layer.cfg)
+                                  packed_tc=layer.packed(h.device, tc=True), **layer.cfg)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

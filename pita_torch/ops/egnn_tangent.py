@@ -1,14 +1,16 @@
 """One EGCL layer's tangent map (kernel K4) and the forward-mode Jacobian trace.
 
 Counterpart of ``pita_tpu/ops/pallas/egnn_fwd.py``: ``_layer_tan_kernel``
-(:195-239, called through ``_layer_tan_call`` :360) has two kernels here,
-chosen by the compute dtype as K2's and K3's are: bf16 runs the tensor-core
-kernel of ``pita_torch/csrc/egnn_tangent_tc.cu`` (``egnn_layer_tangent_tc``),
-f32 the scalar kernel of ``pita_torch/csrc/egnn_tangent.cu``, which stays the
-kernel of record for f32 (tensor cores would change f32 results). Each
-source's header says what bounds it on the H100 and what its design does
-about that. ``egnn_jacobian_trace_pallas`` (:501-559) is
-``egnn_jacobian_trace_fused`` here.
+(:195-239, called through ``_layer_tan_call`` :360) has three kernels here,
+chosen by the compute dtype and the shape as K2's are: bf16 runs the
+tensor-core kernel of ``pita_torch/csrc/egnn_tangent_tc.cu``
+(``egnn_layer_tangent_tc``); f32 the 3xTF32 tensor-core kernel of
+``pita_torch/csrc/egnn_tangent_f32tc.cu`` (``egnn_layer_tangent_tf32``) where
+``egnn_layer.tf32_takes(N, F)`` (F in (16, 32), N <= 64: the lj13 and lj55
+presets), else the scalar kernel of ``pita_torch/csrc/egnn_tangent.cu``
+(``_tangent_scalar``). Each source's header says what bounds it on the H100
+and what its design does about that. ``egnn_jacobian_trace_pallas``
+(:501-559) is ``egnn_jacobian_trace_fused`` here.
 
 The layer of ``pita_torch.ops.egnn_layer.layer_step`` is linearized at its
 primal inputs (h, x, edge_attr) and a chunk of tangents (dh, dx, dea) pushed
@@ -33,14 +35,18 @@ import torch
 
 from pita_torch.ops import _build
 from pita_torch.ops.egnn_layer import (_check_bf16, _kernel_args, _tc_launch_args,
-                                       egnn_layer_forward, layer_step, pack_weights,
-                                       rounded_weights)
+                                       _tf32_launch_args, egnn_layer_forward, layer_step,
+                                       pack_weights, rounded_weights, tf32_takes)
 
 # limits of the tensor-core kernel, mirrored from csrc/egnn_tangent_tc.cu
 # (kTanMaxN, kTanMaxTc): four 16-sender tiles; a block's tangents are one
 # m16 tile of its node products
 TC_MAX_N = 64
 TC_MAX_CHUNK = 16
+# the 3xTF32 kernel's most tangents a block, mirrored from
+# csrc/egnn_tangent_f32tc.cu (kT32MaxTc): the chunk's f32 dh W_dst must fit in
+# shared memory beside the rest
+TF32_MAX_CHUNK = 8
 
 
 def _rt(a, cd):
@@ -111,6 +117,19 @@ def _lib():
 
 
 @functools.cache
+def _lib_tf32():
+    lib = _build.load("egnn_tangent_f32tc")
+    for name in ("pita_egcl_tangent_tf32_max_n", "pita_egcl_tangent_tf32_max_chunk"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.pita_egcl_tangent_tf32.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_tangent_tf32.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _lib_tc():
     lib = _build.load("egnn_tangent_tc")
     for name in ("pita_egcl_tangent_tc_max_n", "pita_egcl_tangent_tc_max_chunk"):
@@ -150,23 +169,31 @@ def egnn_layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, pack
 
     ``cfg``: attention, tanh, coords_range, cd. ``packed``: the output of
     ``pack_weights(w, cd)`` on the inputs' device, built here if not given.
-    ``tangent_chunk``: tangents one block of the kernel takes. On CUDA the
-    compute dtype picks the kernel: bf16 runs the tensor-core kernel
-    (``egnn_layer_tangent_tc``, ``packed_tc`` from ``pack_weights_tc``), f32
-    the scalar kernel, whose launches this function counts.
+    ``tangent_chunk``: tangents one block of the kernel takes (the 3xTF32
+    kernel takes at most 8). On CUDA the compute dtype and the shape pick the
+    kernel: bf16 runs the tensor-core kernel (``egnn_layer_tangent_tc``,
+    ``packed_tc`` from ``pack_weights_tc``); f32 the 3xTF32 tensor-core kernel
+    (``egnn_layer_tangent_tf32``, ``packed_tc`` from ``pack_weights_tf32``)
+    where ``tf32_takes(N, F)`` (F in (16, 32), N <= 64), else the scalar
+    kernel, whose launches this function counts.
     """
-    if cfg.get("cd", torch.float32) == torch.bfloat16:
+    cd = cfg.get("cd", torch.float32)
+    if cd == torch.bfloat16:
         return egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=packed,
                                      packed_tc=packed_tc, tangent_chunk=tangent_chunk, **cfg)
+    if cd == torch.float32 and tf32_takes(h.shape[-2], h.shape[-1]):
+        return egnn_layer_tangent_tf32(h, x, edge_attr, xs0, basis, dh, dx, w, packed=packed,
+                                       packed_tc=packed_tc, tangent_chunk=tangent_chunk, **cfg)
     return _tangent_scalar(h, x, edge_attr, xs0, basis, dh, dx, w, packed, tangent_chunk, **cfg)
 
 
 def _tangent_scalar(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, tangent_chunk=16,
                     **cfg):
     """The scalar K4 (``egcl_tan_kernel``) in either compute dtype, counted
-    on ``egnn_layer_tangent.launches``: ``egnn_layer_tangent``'s f32 route.
-    bf16 reaches it only when called directly, to time it against the
-    tensor-core kernel. A block takes ``tangent_chunk`` tangents in turn."""
+    on ``egnn_layer_tangent.launches``: ``egnn_layer_tangent``'s f32 route
+    for shapes ``tf32_takes`` refuses. The f32 shapes it takes and bf16 reach
+    it only when called directly, to time it against the tensor-core
+    kernels. A block takes ``tangent_chunk`` tangents in turn."""
     _check_inputs(h, x, edge_attr, xs0, basis, dh, dx)
     if h.device.type == "cpu":
         with torch.no_grad():
@@ -210,6 +237,36 @@ def _aligned(a):
     return a.clone() if a.data_ptr() % 16 else a
 
 
+def egnn_layer_tangent_tf32(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None,
+                            packed_tc=None, tangent_chunk: int = 16, **cfg):
+    """K4 in f32 on tensor cores, its products in 3xTF32
+    (``csrc/egnn_tangent_f32tc.cu``); returns (dh_out, dx_out). A block of
+    the kernel takes min(``tangent_chunk``, 8) tangents of one chain. Takes F
+    in (16, 32) and N up to 64; raises on anything else, on
+    ``tangent_chunk`` < 1 and on a compute dtype other than f32. On CPU
+    tensors it runs the plain version, at any shape."""
+    _check_inputs(h, x, edge_attr, xs0, basis, dh, dx)
+    if h.device.type == "cpu":
+        with torch.no_grad():
+            return layer_tangent(h, x, edge_attr, xs0, basis, dh, dx, w, **cfg)
+    if tangent_chunk < 1:
+        raise ValueError(f"tangent_chunk must be positive, got {tangent_chunk}")
+    packed, packed_tc, args = _tf32_launch_args(h, w, packed, packed_tc, cfg, "tangent")
+    Tc = dh.shape[1]
+    ins = [_aligned(a) for a in (h, x, edge_attr, xs0, basis, dh, dx)]
+    dh_out, dx_out = torch.empty_like(ins[5]), torch.empty_like(ins[6])
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib_tf32().pita_egcl_tangent_tf32(
+            *(a.data_ptr() for a in ins), packed.data_ptr(), packed_tc.data_ptr(),
+            dh_out.data_ptr(), dx_out.data_ptr(), *args[:1], Tc,
+            min(int(tangent_chunk), TF32_MAX_CHUNK), *args[1:], stream,
+        )
+    _build.check(err, "egnn_layer_tangent_tf32")
+    egnn_layer_tangent_tf32.launches += 1
+    return dh_out, dx_out
+
+
 def egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, packed_tc=None,
                           tangent_chunk: int = 16, **cfg):
     """K4 in bf16 compute on tensor cores (``csrc/egnn_tangent_tc.cu``);
@@ -243,6 +300,7 @@ def egnn_layer_tangent_tc(h, x, edge_attr, xs0, basis, dh, dx, w, packed=None, p
 
 egnn_layer_tangent.launches = 0
 egnn_layer_tangent_tc.launches = 0
+egnn_layer_tangent_tf32.launches = 0
 
 
 @torch.no_grad()
@@ -269,8 +327,7 @@ def egnn_jacobian_trace_fused(backbone, t, x_flat, beta, tangent_chunk: int = 16
     ea = (diff0 * diff0).sum(-1).contiguous()
 
     cuda = dev.type == "cuda"
-    packs = [(layer.packed(dev) if cuda else None,
-              layer.packed(dev, tc=True) if cuda and layer.cfg["cd"] == torch.bfloat16 else None)
+    packs = [(layer.packed(dev), layer.packed(dev, tc=True)) if cuda else (None, None)
              for layer in backbone.layers]
     states, xc = [], xs
     for layer, (packed, packed_tc) in zip(backbone.layers, packs):

@@ -185,17 +185,18 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
     h = torch.randn(B, N, F, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
-    # bf16 runs the tensor-core K2 and K3, f32 the scalar ones
+    # bf16 runs the tensor-core K2 and K3, f32 the 3xTF32 K2 and the scalar K3
     tc = cd == torch.bfloat16
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
         counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches,
-                          el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches)
+                          el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches,
+                          el.egnn_layer_backward_tc.launches)
         before = counts()
         got = (*el.egnn_layer_forward(h, x, ea, w, **cfg),
                *el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg))
-        assert counts() == (before[0] + (not tc), before[1] + tc, before[2] + (not tc),
-                            before[3] + tc)
+        assert counts() == (before[0], before[1] + tc, before[2] + (not tc),
+                            before[3] + (not tc), before[4] + tc)
         with torch.no_grad():
             ref = (*el.layer_step(h, x, ea, w, **cfg),
                    *el.layer_vjp(h, x, ea, gh, gx, w, **cfg))
@@ -233,6 +234,68 @@ def test_egcl_tc_forward_matches_plain(cuda, F, N, B):
             assert torch.equal(a, a2)
             # now and then a neighbouring bf16 rounding (TOL_BF16 of chip_smoke.py)
             assert (a - b).abs().max() <= 3e-2 * b.abs().max()
+
+
+@pytest.mark.parametrize("F,N,B", [
+    (32, 55, 64), (32, 13, 64), (16, 55, 64), (16, 13, 64),  # the presets' N at both widths
+    (32, 64, 64), (16, 40, 7),  # four full receiver tiles; a ragged one
+    (32, 55, 2000),  # the DEM refill's launch
+])
+def test_egcl_tf32_forward_matches_plain(cuda, F, N, B):
+    """The 3xTF32 K2 against layer_step in f32 at chip_smoke.py's TOL_F32, on
+    random weights at F = 16 and the bench's layer at F = 32, attention and
+    tanh on and off; two launches on the same inputs are bitwise equal."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    g = torch.Generator(device=cuda).manual_seed(N + 3)
+    x = torch.randn(B, N, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(B, N, F, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    for attention, tanh in ((True, True), (False, False), (True, False)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.float32)
+        before = (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches)
+        got = el.egnn_layer_forward(h, x, ea, w, **cfg)
+        again = el.egnn_layer_forward_tf32(h, x, ea, w, **cfg)
+        assert (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches) == (
+            before[0], before[1] + 2)
+        with torch.no_grad():
+            ref = [torch.cat(p) for p in zip(*(
+                el.layer_step(h[s:s + 500], x[s:s + 500], ea[s:s + 500], w, **cfg)
+                for s in range(0, B, 500)))]
+        torch.cuda.synchronize()
+        for a, a2, b in zip(got, again, ref):
+            assert torch.equal(a, a2)
+            assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+
+
+def test_egcl_f32_forward_routes_by_shape(cuda):
+    """The rule of egnn_layer.tf32_takes: f32 at N > 64 runs the scalar K2;
+    the 3xTF32 wrapper itself refuses N > 64, F outside (16, 32) and bf16."""
+    w = _random_layer(16, cuda, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(3, 70, 3, generator=g, device=cuda)
+    h = torch.randn(3, 70, 16, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    before = (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches)
+    got = el.egnn_layer_forward(h, x, ea, w)
+    assert (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches) == (
+        before[0] + 1, before[1])
+    with torch.no_grad():
+        ref = el.layer_step(h, x, ea, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_forward_tf32(h, x, ea, w)
+    w24 = _random_layer(24, cuda, seed=1)
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_forward_tf32(torch.zeros(2, 13, 24, device=cuda),
+                                   torch.zeros(2, 13, 3, device=cuda),
+                                   torch.zeros(2, 13, 13, device=cuda), w24)
+    with pytest.raises(ValueError, match="f32 only"):
+        el.egnn_layer_forward_tf32(h[:, :13].contiguous(), x[:, :13].contiguous(),
+                                   ea[:, :13, :13].contiguous(), w, cd=torch.bfloat16)
+    assert el.egnn_layer_forward_tf32.launches == before[1]
+    assert el._lib_tf32().pita_egcl_tf32_max_n() == el.TF32_MAX_N
 
 
 def test_egcl_tc_forward_refuses_large_n(cuda):
@@ -336,17 +399,18 @@ def test_g_op_scalar_kernel_matches_plain(cuda):
     (16, 40, 7, 1, torch.bfloat16, 3e-2),
 ])
 def test_egcl_tangent_kernel_matches_plain(cuda, F, N, Tc, tc, cd, tol):
-    """The dispatch: bf16 runs the tensor-core K4, f32 the scalar K4, each
-    counted on its own counter."""
+    """The dispatch: bf16 runs the tensor-core K4, f32 the 3xTF32 K4, each
+    counted on its own counter, the scalar K4 never at these shapes."""
     w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
     args = _tangent_inputs(cuda, 6, N, F, Tc, seed=N + 1)
     tc_kernel = cd == torch.bfloat16
-    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
+    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches,
+                      et.egnn_layer_tangent_tf32.launches)
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
         before = counts()
         got = et.egnn_layer_tangent(*args, w, tangent_chunk=tc, **cfg)
-        assert counts() == (before[0] + (not tc_kernel), before[1] + tc_kernel)
+        assert counts() == (before[0], before[1] + tc_kernel, before[2] + (not tc_kernel))
         with torch.no_grad():
             ref = et.layer_tangent(*args, w, **cfg)
         torch.cuda.synchronize()
@@ -419,6 +483,76 @@ def test_egcl_tangent_tc_kernel_refuses_unsupported_shapes(cuda, N, F, tc, match
     with pytest.raises(ValueError, match=match):
         et.egnn_layer_tangent(*args, w, tangent_chunk=tc, cd=torch.bfloat16)
     assert et.egnn_layer_tangent_tc.launches == before
+
+
+@pytest.mark.parametrize("F,N,Tc,B,tc", [
+    (32, 55, 64, 8, 16),  # the fill's launch at 8 chains: the route's chunk of 16 runs as 8
+    (32, 55, 37, 8, 8),  # the ragged last super-chunk: blocks of 8 and one of 5
+    (32, 13, 39, 8, 8),  # all 39 tangents of lj13
+    (32, 64, 9, 1, 8),  # four full sender tiles
+    (16, 55, 20, 3, 3),
+    (16, 13, 1, 8, 1),  # one tangent; one partly filled sender tile
+])
+def test_egcl_tangent_tf32_kernel_matches_plain(cuda, F, N, Tc, B, tc):
+    """The 3xTF32 K4 at chip_smoke.py's TOL_F32, at the edges of its tiles:
+    sender tiles partly inside N, chunks that do not divide Tc, the largest
+    N, a chunk above its 8; attention and tanh on and off."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    args = _tangent_inputs(cuda, B, N, F, Tc, seed=5 * N + Tc)
+    for attention, tanh in ((True, True), (False, False), (True, False), (False, True)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.float32)
+        before = (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches)
+        got = et.egnn_layer_tangent_tf32(*args, w, tangent_chunk=tc, **cfg)
+        assert (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches) == (
+            before[0], before[1] + 1)
+        with torch.no_grad():
+            ref = et.layer_tangent(*args, w, **cfg)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a).all()
+            assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+
+
+def test_egcl_tangent_tf32_kernel_is_deterministic(cuda):
+    """One warp writes each output and sums over senders in a fixed order:
+    two launches on the same inputs are bitwise equal."""
+    w = _bench_layer(cuda)
+    args = _tangent_inputs(cuda, 8, 55, 32, 64, seed=6)
+    run = lambda: et.egnn_layer_tangent_tf32(*args, w)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_egcl_f32_tangent_routes_by_shape(cuda):
+    """The rule of egnn_layer.tf32_takes for K4: f32 at N > 64 runs the scalar
+    K4; the 3xTF32 wrapper itself refuses N > 64, F outside (16, 32), a
+    chunk below 1 and bf16; its limits are the kernel's."""
+    w = _random_layer(16, cuda, seed=2)
+    args = _tangent_inputs(cuda, 2, 70, 16, 5, seed=3)
+    before = (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches)
+    got = et.egnn_layer_tangent(*args, w, tangent_chunk=4)
+    assert (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches) == (
+        before[0] + 1, before[1])
+    with torch.no_grad():
+        ref = et.layer_tangent(*args, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+    with pytest.raises(ValueError, match="N <= 64"):
+        et.egnn_layer_tangent_tf32(*args, w)
+    small = _tangent_inputs(cuda, 2, 13, 16, 5, seed=4)
+    with pytest.raises(ValueError, match="tangent_chunk"):
+        et.egnn_layer_tangent_tf32(*small, w, tangent_chunk=0)
+    with pytest.raises(ValueError, match="f32 only"):
+        et.egnn_layer_tangent_tf32(*small, w, cd=torch.bfloat16)
+    with pytest.raises(ValueError, match="N <= 64"):
+        et.egnn_layer_tangent_tf32(*_tangent_inputs(cuda, 2, 13, 24, 5, seed=4),
+                                   _random_layer(24, cuda, seed=2))
+    assert et.egnn_layer_tangent_tf32.launches == before[1]
+    lib = et._lib_tf32()
+    assert lib.pita_egcl_tangent_tf32_max_n() == el.TF32_MAX_N
+    assert lib.pita_egcl_tangent_tf32_max_chunk() == et.TF32_MAX_CHUNK
 
 
 def test_egcl_tangent_tc_limits_match_the_kernel(cuda):
@@ -506,8 +640,9 @@ def test_exact_generic_divergence_on_the_card(cuda):
 
 def test_training_step_repacks_the_sampler_kernels(cuda, tmp_path):
     """After an optimizer step on the card, the EMA shadow's layers (the
-    sampler's weights, updated in place) repack their kernel buffers: K2 and
-    K3 on them match their plain versions on the updated weights, f32."""
+    sampler's weights, updated in place) repack their kernel buffers, the
+    3xTF32 K2's too: K2 and K3 on them match their plain versions on the
+    updated weights, f32."""
     from pita_torch.configs import build_trainer, compose
 
     cfg = compose("lj13", debug="short", overrides={
@@ -519,23 +654,26 @@ def test_training_step_repacks_the_sampler_kernels(cuda, tmp_path):
     tr.populate_initial_buffer()
     layer = tr.ema_score.module.layers[1]
     before = layer.packed(cuda).clone()
+    before_tc = layer.packed(cuda, tc=True).clone()
     tr.train_step(0)
     assert not torch.equal(before, layer.packed(cuda))
+    assert not torch.equal(before_tc, layer.packed(cuda, tc=True))
     w = layer.weights()
     g = torch.Generator(device=cuda).manual_seed(5)
     x = torch.randn(64, 13, 3, generator=g, device=cuda) * 0.5
     h = torch.randn(64, 13, 16, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
-    n_fwd, n_bwd = el.egnn_layer_forward.launches, el.egnn_layer_backward.launches
+    n_fwd, n_bwd = el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches
     with torch.no_grad():
         ho, xo = layer(h, x, ea)
         ref = el.layer_step(h, x, ea, w, **layer.cfg)
     dh, dx, dea = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=layer.packed(cuda),
                                          **layer.cfg)
     ref_b = el.layer_vjp(h, x, ea, gh, gx, w, **layer.cfg)
-    assert (el.egnn_layer_forward.launches, el.egnn_layer_backward.launches) == (
+    assert (el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches) == (
         n_fwd + 1, n_bwd + 1)
+    assert torch.equal(layer.packed(cuda, tc=True), el.pack_weights_tf32(w).to(cuda))
     torch.cuda.synchronize()
     for a, b in zip((ho, xo, dh, dx, dea), (*ref, *ref_b)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
