@@ -19,11 +19,14 @@ Phases, each printing lines, each failing the run on disagreement:
      the new K1's device time at every lane count beside the rule's pick;
   3. K2 (EGCL forward) against layer_step and K3 (EGCL VJP) against autograd
      through layer_step: bench weights, each of the 3 layers, 2048 chains,
-     N=55, in f32 (the scalar K2 and K3) and bf16 (the tensor-core K2 and
-     K3); the tensor-core kernels also on first-step inputs (prior samples at
-     t = 1), at the Hutchinson launch's 4096 chains and at LJ13's N = 13;
-     every K2 and K3 timed, the scalar K2 also in bf16 beside the
-     tensor-core one;
+     N=55, in f32 (the 3xTF32 K2 and the scalar K3) and bf16 (the
+     tensor-core K2 and K3); the tensor-core kernels also on first-step
+     inputs (prior samples at t = 1), at the Hutchinson launch's 4096 chains
+     and at LJ13's N = 13; the f32 K2 at the fill's 256 chains, the DEM
+     refill's 2,000 and 2,048, the 3xTF32 kernel and the scalar yardstick
+     each against layer_step, the 3xTF32 one launched twice for a
+     bitwise-equal result and both timed in turns; every K2 and K3 timed,
+     the scalar K2 also in bf16 beside the tensor-core one;
   4. the first main path, timed: bench_lj55.npz through the port's decoder,
      the hutch_ess_k10 configuration of bench.py at 2048 chains x 100 steps
      after one warm-up; it must launch the tensor-core K2 (630 times) and K3,
@@ -42,23 +45,27 @@ Phases, each printing lines, each failing the run on disagreement:
      too), launched twice for a bitwise-equal result, and timed in turns with
      the scalar K5 beside a torch.bmm yardstick;
   7. K4 (EGCL layer tangent) against its plain version: each layer in f32
-     (the scalar K4) and bf16 (the tensor-core K4) on the tangents the trace
+     (the 3xTF32 K4) and bf16 (the tensor-core K4) on the tangents the trace
      gives it, 64 chains x 64 tangents; then the whole forward-mode trace
      against the edge-operator trace; then the tensor-core K4 compared at the
      main path's launches, 256 chains x a super-chunk of 64 tangents and x
      the ragged last one of 37, launched twice for a bitwise-equal result at
-     the first and timed there in turns with the scalar K4 in bf16, the
-     scalar K4 also timed in f32;
+     the first and timed there in turns with the scalar K4 in bf16; the f32
+     K4 at the fill's 64 chains and at 256, x 64 tangents: the 3xTF32 kernel
+     and the scalar yardstick against the plain version, the 3xTF32 one
+     launched twice for a bitwise-equal result, both timed in turns, the
+     recounted bound with its terms;
   8. end-to-end wiring of the exact divergence: 64 chains x 8 steps with the
      weights accumulating in every step and resampling never firing, same
      draws: the K5 route and the K4 route each against the materialized-G
      route; samples identical, final log-weights within tolerance, with the
-     bf16 and with an f32 backbone (whose runs must launch the scalar f32
-     K2 and K3, and the bf16 runs the scalar K2 never; no run the scalar
-     K5); then the trace by the three routes on a full-width backbone with
+     bf16 and with an f32 backbone (whose runs must launch the 3xTF32 K2,
+     the scalar K3 and, on the K4 route, the 3xTF32 K4, and the scalar K2
+     and K4 never; the bf16 runs no scalar kernel; no run the scalar K5);
+     then the trace by the three routes on a full-width backbone with
      random weights, where the G-operator term is not as small as on the
      trained ones; the bf16 runs of the K4 route must launch the tensor-core
-     K4 alone, the f32 runs the scalar K4 alone;
+     K4 alone, the f32 runs the 3xTF32 K4 alone;
   9. the second main path, timed: quadrature_k10 of bench.py (exact
      divergence every 10th step, resampling every step, chain chunks of 256)
      at 2048 chains x 100 steps once per route, each after a 10-step warm-up,
@@ -78,22 +85,27 @@ Phases, each printing lines, each failing the run on disagreement:
      kernel launched, one step on the card against the same step on the CPU
      at batch 64, and the EMA's kernel buffers repacked), one rung
      transition's fill by evaluate through the K4 route (256 chains x 100
-     steps; the f32 K1, K2, K3 and K4 must launch and no tensor-core kernel;
-     finite weights and energies; the rung-1 buffer filled; no escalated
-     retry), K1 and the f32 K2/K3/K4 compared and timed at those launches
-     (K1's device time also by torch.profiler, which must find it), a fill
-     step timed by each route, and a
+     steps; K1, the 3xTF32 K2 and K4 and the scalar K3 must launch, no
+     scalar K2 or K4 and no bf16 kernel; finite weights and energies; the
+     rung-1 buffer filled; no escalated retry), K1 and the f32 K2/K3/K4
+     compared and timed at those launches (K1's device time also by
+     torch.profiler, which must find it; the 3xTF32 kernels in turns with
+     the scalar ones), a fill step timed by each route and by the K4 route
+     with the scalar f32 kernels (before), the f32 K4's launches over 10
+     steps counted by torch.profiler against the counter, and a
      checkpoint saved, restored into a fresh trainer and compared bitwise,
      saved over, and a save interrupted before its rename;
  12. the training tools: DEM pretraining on the lj55 preset with the iDEM
      target through fit (2 epochs x 10 steps of 512 chains x 1,000 probes:
      K1 once a step at 512,000 configurations; one plain-SDE refill of
-     buffer 0, 2,000 chains x 1,000 steps: the f32 K2 3,000 times and no
-     K3, K4 or tensor-core kernel; finite losses and val/dem metrics), a
+     buffer 0, 2,000 chains x 1,000 steps: the 3xTF32 K2 3,000 times and no
+     K3, K4, scalar K2 or bf16 kernel; finite losses and val/dem metrics), a
      DEM step profiled, the iDEM target by K1 against its plain version on
      the first 8 chains, K1 at that launch and the f32 K2 at the refill's
-     2,000 chains against their plain versions and timed, a force-based
-     pretraining loss on the card against the CPU; 100 HMC steps of 10
+     2,000 chains against their plain versions and timed (the 3xTF32 K2 in
+     turns with the scalar one), a force-based pretraining loss on the card
+     against the CPU, the refill's sampling timed in turns with the scalar
+     f32 K2 (before) and the 3xTF32 one (after); 100 HMC steps of 10
      leapfrogs at T = 1 (K1 1,201 times, the first K1 never); the ten-run
      protocol of scripts/make_ground_truth.py for LJ55_temp_1.0_val (R-hat
      < 1.05, within that script's tolerance of the committed diagnostics);
@@ -168,6 +180,7 @@ K5 route also its five largest PyTorch kernels) and of 5 training steps;
 --quality-seeds K repeats phase 5 over seeds 0..K-1 (the gate holds seed 0).
 """
 
+import contextlib
 import json
 import math
 import os
@@ -182,6 +195,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+# an f32 product in 3xTF32 is three TF32 products (hi hi, hi lo, lo hi): the
+# f32 EGCL kernels' products at a third of the TF32 dense peak
+PEAK_3XTF32 = PEAK_TF32 / 3
 # special-function units (exponential, reciprocal, tanh): 16 results per
 # clock per SM, 132 SMs, at the H100 SXM's 1.98 GHz boost clock
 PEAK_SFU = 132 * 16 * 1.98e9
@@ -235,18 +252,48 @@ def bound_ms(n_bytes, n_ops, peak_ops, sfu_ops=0, fp32_ops=0):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def egcl_bound(label, n_bytes, n_ops, peak_ops, n_edges, F):
+def products_name(peak_ops):
+    return {PEAK_BF16: "bf16 tensor cores", PEAK_3XTF32: "TF32 tensor cores in 3xTF32 "
+            "(a third of 495 TFLOP/s)", PEAK_F32: "the f32 pipes"}[peak_ops]
+
+
+def egcl_bound(label, n_bytes, n_ops, peak_ops, n_edges, F, phase=3):
     """bound_ms of an EGCL kernel, its three terms printed: the function
     needs sigma(z1), sigma(z2), sigma(cz) (F each), the attention sigmoid and
     a tanh per edge, each at least one SFU operation (tanh.approx.f32 gives
-    a logistic in one; an exponential and a reciprocal take two)."""
+    a logistic in one; an exponential and a reciprocal take two). f32
+    products count on TF32 tensor cores in 3xTF32 (PEAK_3XTF32)."""
     sfu = (3 * F + 2) * n_edges
     bnd = bound_ms(n_bytes, n_ops, peak_ops, sfu)
-    print(f"[phase 3] bound of {label}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, products "
-          f"{n_ops / peak_ops * 1e3:.4f} ms, SFU {sfu / PEAK_SFU * 1e3:.4f} ms "
+    print(f"[phase {phase}] bound of {label}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, "
+          f"products {n_ops / peak_ops * 1e3:.4f} ms on {products_name(peak_ops)} "
+          f"({n_ops:.3e} operations), SFU {sfu / PEAK_SFU * 1e3:.4f} ms "
           f"({sfu:.3e} sigmoids and tanhs, one SFU operation each at 16/clk/SM, 1.98 GHz) "
-          f"-> {bnd[0]:.4f} ms")
+          f"-> {bnd[0]:.4f} ms ({bnd[1]})")
     return bnd
+
+
+@contextlib.contextmanager
+def scalar_f32_kernels():
+    """The f32 K2 and K4 on their scalar yardsticks for one timing: the rule
+    egnn_layer.tf32_takes answers False in both dispatching modules while
+    the block runs (the port has no switch for it)."""
+    from pita_torch.ops import egnn_layer as el
+    from pita_torch.ops import egnn_tangent as et
+
+    saved = el.tf32_takes, et.tf32_takes
+    el.tf32_takes = et.tf32_takes = lambda N, F: False
+    try:
+        yield
+    finally:
+        el.tf32_takes, et.tf32_takes = saved
+
+
+def in_turns(old, new, ms=cuda_ms, **kw):
+    """Times of two callables in turns (old, new, new, old) and the means of
+    each: (turns, new_ms, old_ms)."""
+    turns = [ms(f, **kw) for f in (old, new, new, old)]
+    return turns, (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
 
 
 # K1's least work, counted per unordered pair (the pair energy and the pair
@@ -414,8 +461,8 @@ def phase_egcl(wl, data):
             cfg = dict(layer.cfg, cd=cd)
             w = layer.weights()
             packed = el.pack_weights(w, cd).cuda()
-            # the tensor-core K2's and K3's bf16 matrices
-            ptc = el.pack_weights_tc(w).cuda() if cd == torch.bfloat16 else None
+            # the tensor-core kernels' matrices: bf16 (K2, K3), TF32 hi + lo (the f32 K2)
+            ptc = (el.pack_weights_tc(w) if cd == torch.bfloat16 else el.pack_weights_tf32(w)).cuda()
             gh = torch.randn(h.shape, generator=gen, device="cuda")
             gx = torch.randn(x.shape, generator=gen, device="cuda")
             ho_k, xo_k = el.egnn_layer_forward(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
@@ -467,15 +514,14 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     io_f = 4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + wbytes
     io_b = 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes
     # edge products: 2 F x F matmuls forward; the VJP rebuilds them and runs
-    # their 2 transposes; bf16 inputs on tensor cores, f32 on the scalar units
-    peak = PEAK_BF16 if cd_name == "bf16" else PEAK_F32
-    bf = egcl_bound(f"K2 {cd_name} B={B}", io_f, E * 4 * F * F + node_ops, peak, E, F)
+    # their 2 transposes; bf16 inputs on tensor cores, f32 in 3xTF32 on them
+    peak = PEAK_BF16 if cd_name == "bf16" else PEAK_3XTF32
     bb_ = egcl_bound(f"K3 {cd_name} B={B}", io_b, E * 8 * F * F + 2 * node_ops, peak, E, F)
     if cd_name == "f32":
-        print(f"[phase 3] f32 B={B} layer 0: scalar K2 {ms_f:.4f} ms (plain {pl_f:.3f}); "
-              f"scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
-        return {"fwd_f32": dict(ms=ms_f, plain_ms=pl_f, bound_ms=bf[0], bound_by=bf[1]),
-                "bwd_f32": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1])}
+        print(f"[phase 3] f32 B={B} layer 0: scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
+        return dict(egcl_layer0_f32(el, cfg, w, packed, ptc, h, x, ea),
+                    bwd_f32=dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1]))
+    bf = egcl_bound(f"K2 {cd_name} B={B}", io_f, E * 4 * F * F + node_ops, peak, E, F)
     # the scalar K2 in bf16, past the dispatch for this timing only; in turns
     # with the tensor-core K2 (scalar, tensor cores, tensor cores, scalar)
     scalar = lambda *a: el._forward_scalar(*a, w, packed, **cfg)
@@ -539,6 +585,74 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     return {"fwd": dict(ms=ms_f, plain_ms=pl_f, bound_ms=bf[0], bound_by=bf[1]),
             "bwd": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1]),
             "fwd_extra_err": worst_f, "bwd_extra_err": worst_b}
+
+
+def k2_f32_bound(h, packed, phase):
+    """The f32 K2's bound at h (B, N, F), its terms printed: h, x and
+    edge_attr read, h and x written, the weights read; the edge and node
+    products in 3xTF32; the SFU terms."""
+    B, N, F = h.shape
+    E = B * N * (N - 1)
+    return egcl_bound(f"K2 f32 B={B}", 4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N)
+                      + 4 * packed.numel(), E * 4 * F * F + B * N * 10 * F * F, PEAK_3XTF32, E,
+                      F, phase=phase)
+
+
+def k2_f32_in_turns(el, h, x, ea, w, cfg, packed, ptc, label, phase):
+    """The f32 K2 at one launch: the 3xTF32 kernel (the dispatch's pick, which
+    must launch it alone) and the scalar yardstick against layer_step, the
+    3xTF32 one launched twice for a bitwise-equal result, both timed in turns
+    (scalar, 3xTF32, 3xTF32, scalar). Returns (fields of the 3xTF32 kernel,
+    fields of the scalar one) for the kernels line."""
+    import torch
+
+    tf32 = lambda: el.egnn_layer_forward(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
+    scalar = lambda: el._forward_scalar(h, x, ea, w, packed, **cfg)
+    before = (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches)
+    got, again = tf32(), tf32()
+    if (el.egnn_layer_forward.launches, el.egnn_layer_forward_tf32.launches) != (
+            before[0], before[1] + 2):
+        fail(f"the f32 layer forward at {label} did not launch the 3xTF32 K2 alone")
+    got_s = scalar()
+    with torch.no_grad():
+        ref = [torch.cat(p) for p in zip(*(el.layer_step(h[c0:c0 + 1024], x[c0:c0 + 1024],
+                                                         ea[c0:c0 + 1024], w, **cfg)
+                                           for c0 in range(0, h.shape[0], 1024)))]
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    errs_s = [rel_err(a, b) for a, b in zip(got_s, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, got_s, ref
+    turns, ms, ms_s = in_turns(scalar, tf32)
+    with torch.no_grad():
+        pl = cuda_ms(lambda: el.layer_step(h, x, ea, w, **cfg), reps=3, warmup=1)
+    bnd = k2_f32_bound(h, packed, phase)
+    print(f"[phase {phase}] f32 K2 at {label} (B={h.shape[0]}): 3xTF32 kernel rel err h_out "
+          f"{errs[0][0]:.2e}, x_out {errs[1][0]:.2e}, scalar h_out {errs_s[0][0]:.2e}, x_out "
+          f"{errs_s[1][0]:.2e} (tol {TOL_F32}); a second launch "
+          f"{'bitwise equal' if same else 'DIFFERENT'}; 3xTF32 {ms:.4f} ms, scalar {ms_s:.4f} ms, "
+          f"in turns {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, 3xTF32, 3xTF32, "
+          f"scalar); plain {pl:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    if not max(e[0] for e in errs + errs_s) <= TOL_F32:
+        fail(f"an f32 K2 disagrees with its plain version at {label}")
+    if not same:
+        fail(f"two launches of the 3xTF32 K2 at {label} differ")
+    common = dict(plain_ms=pl, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return (dict(max_abs_err=max(e[1] for e in errs), ms=ms, **common),
+            dict(max_abs_err=max(e[1] for e in errs_s), ms=ms_s, **common))
+
+
+def egcl_layer0_f32(el, cfg, w, packed, ptc, h, x, ea):
+    """The f32 K2 on phase 3's inputs at the main paths' chain counts (the
+    fill's 256, the DEM refill's 2,000) and at 2,048. Returns the JSON
+    fields by kernel, of the 2,000-chain launch."""
+    out = {}
+    for n in (256, 2000, h.shape[0]):
+        out[n] = k2_f32_in_turns(el, h[:n], x[:n], ea[:n], w, cfg, packed, ptc,
+                                 f"layer 0, t = 0.5, {n} chains", 3)
+    worst = max(max(r[0]["max_abs_err"], r[1]["max_abs_err"]) for r in out.values())
+    return {"fwd_f32": dict(out[2000][0], max_abs_err=worst),
+            "fwd_f32_scalar": dict(out[2000][1], max_abs_err=worst)}
 
 
 def score_inputs(wl, x_flat, t_val):
@@ -669,6 +783,78 @@ def tangent_fp32_ops(n_edge_tangents, F):
     return n_edge_tangents * (9 * F + 23)
 
 
+def k4_f32_bound(B, Tc, N, F, n_weights, phase):
+    """The f32 K4's bound for B chains x Tc tangents, its terms printed:
+    tangents in and out, the primal state and the weights read once; per
+    edge and tangent one F x F product (R(sp1 dz1) W_e2; the coordinate
+    MLP's tangent is the dot product dm . W_c1 (silu'(cz) w_c2), an f32
+    reassociation), per edge the primal's three (W_e2, W_c1, W_c1^T), per
+    node and tangent the node products, all in 3xTF32; the f32 work around
+    them (tangent_fp32_ops); the primal's sigmoids once per edge on the
+    SFUs."""
+    E = B * N * (N - 1)
+    ops = Tc * E * 2 * F * F + E * 6 * F * F + (Tc + 1) * B * N * 10 * F * F
+    ew, sfu = tangent_fp32_ops(Tc * E, F), (3 * F + 2) * E
+    n_bytes = 4 * (2 * B * Tc * N * (F + 3) + B * N * (F + 6) + B * N * N + Tc * N * 3
+                   + n_weights)
+    bnd = bound_ms(n_bytes, ops, PEAK_3XTF32, sfu_ops=sfu, fp32_ops=ew)
+    print(f"[phase {phase}] bound of K4 f32 B={B} Tc={Tc}: bytes "
+          f"{n_bytes / PEAK_BYTES * 1e3:.4f} ms, products {ops / PEAK_3XTF32 * 1e3:.4f} ms on "
+          f"{products_name(PEAK_3XTF32)} ({ops:.3e} operations; at the f32 pipes' 67 TFLOP/s "
+          f"{ops / PEAK_F32 * 1e3:.4f} ms), f32 elementwise {ew / PEAK_FP32_OPS * 1e3:.4f} ms "
+          f"({ew:.3e} operations at 128/clk/SM, 1.98 GHz), SFU {sfu / PEAK_SFU * 1e3:.4f} ms "
+          f"-> {bnd[0]:.4f} ms ({bnd[1]})")
+    return bnd
+
+
+def tangent_f32_in_turns(et, args, w, cfg, packed, ptc, plain_fn=None, phase=7, label=None):
+    """The f32 K4 at one launch (args: h, x, ea, xs0, basis, dh, dx): the
+    3xTF32 kernel (the dispatch's pick, which must launch it alone) and the
+    scalar yardstick at the route's 16 tangents a block against the plain
+    version (``plain_fn(basis, dh, dx, cfg)``, else layer_tangent at once),
+    the 3xTF32 one launched twice for a bitwise-equal result, both timed in
+    turns (scalar, 3xTF32, 3xTF32, scalar). Returns (fields of the 3xTF32
+    kernel, fields of the scalar one) for the kernels line."""
+    import torch
+
+    B, Tc, N, F = args[5].shape
+    label = label or f"B={B} Tc={Tc}"
+    run = lambda: et.egnn_layer_tangent(*args, w, packed=packed, packed_tc=ptc, **cfg)
+    scalar = lambda: et._tangent_scalar(*args, w, packed, tangent_chunk=16, **cfg)
+    before = (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches)
+    got, again = run(), run()
+    if (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tf32.launches) != (
+            before[0], before[1] + 2):
+        fail(f"the f32 layer tangent at {label} did not launch the 3xTF32 K4 alone")
+    got_s = scalar()
+    plain = (lambda: plain_fn(*args[4:], cfg)) if plain_fn else (
+        lambda: et.layer_tangent(*args, w, **cfg))
+    with torch.no_grad():
+        ref = plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    errs_s = [rel_err(a, b) for a, b in zip(got_s, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, got_s, ref
+    turns, ms, ms_s = in_turns(scalar, run, reps=5, warmup=1)
+    with torch.no_grad():
+        pl = cuda_ms(plain, reps=1, warmup=1)
+    bnd = k4_f32_bound(B, Tc, N, F, packed.numel(), phase)
+    print(f"[phase {phase}] f32 K4 at {label}: 3xTF32 kernel rel err dh_out {errs[0][0]:.2e}, "
+          f"dx_out {errs[1][0]:.2e}, scalar dh_out {errs_s[0][0]:.2e}, dx_out {errs_s[1][0]:.2e} "
+          f"(tol {TOL_F32}); a second launch {'bitwise equal' if same else 'DIFFERENT'}; 3xTF32 "
+          f"{ms:.4f} ms, scalar {ms_s:.4f} ms, in turns {' / '.join(f'{v:.4f}' for v in turns)} "
+          f"ms (scalar, 3xTF32, 3xTF32, scalar); plain {pl:.3f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}); 3xTF32 at {ms / bnd[0]:.2f}x the bound, scalar at {ms_s / bnd[0]:.2f}x")
+    if not max(e[0] for e in errs + errs_s) <= TOL_F32:
+        fail(f"an f32 K4 disagrees with its plain version at {label}")
+    if not same:
+        fail(f"two launches of the 3xTF32 K4 at {label} differ")
+    common = dict(plain_ms=pl, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return (dict(max_abs_err=max(e[1] for e in errs), ms=ms, **common),
+            dict(max_abs_err=max(e[1] for e in errs_s), ms=ms_s, **common))
+
+
 def phase_tangent(wl, wl32, data):
     import torch
 
@@ -680,7 +866,8 @@ def phase_tangent(wl, wl32, data):
     N, F, Tc = 55, 32, 64
     bb = wl.score.backbone
     base = torch.as_tensor(data, device="cuda")
-    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches)
+    counts = lambda: (et.egnn_layer_tangent.launches, et.egnn_layer_tangent_tc.launches,
+                      et.egnn_layer_tangent_tf32.launches)
 
     def states(B):
         x_flat = base[:B] + 0.01 * torch.randn(B, 165, generator=gen, device="cuda")
@@ -703,20 +890,20 @@ def phase_tangent(wl, wl32, data):
             cfg = dict(layer.cfg, cd=cd)
             w = layer.weights()
             packed = el.pack_weights(w, cd).cuda()
-            ptc = el.pack_weights_tc(w).cuda() if tc else None
+            ptc = (el.pack_weights_tc(w) if tc else el.pack_weights_tf32(w)).cuda()
             before = counts()
             got = et.egnn_layer_tangent(h, x, ea, xs, basis, dh, dx, w, packed=packed,
                                         packed_tc=ptc, **cfg)
-            if counts() != (before[0] + (not tc), before[1] + tc):
+            if counts() != (before[0], before[1] + tc, before[2] + (not tc)):
                 fail(f"the {cd_name} layer tangent did not launch the "
-                     f"{'tensor-core' if tc else 'scalar'} K4 alone")
+                     f"{'tensor-core' if tc else '3xTF32'} K4 alone")
             with torch.no_grad():
                 ref = et.layer_tangent(h, x, ea, xs, basis, dh, dx, w, **cfg)
                 h_next, x_next = el.layer_step(h, x, ea, w, **cfg)
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip(got, ref)]
             worst[cd_name] = max([worst[cd_name]] + [e[1] for e in errs])
-            print(f"[phase 7] {'tensor-core' if tc else 'scalar'} K4 {cd_name} layer {li} B=64 "
+            print(f"[phase 7] {'tensor-core' if tc else '3xTF32'} K4 {cd_name} layer {li} B=64 "
                   f"Tc={Tc}: rel err dh_out {errs[0][0]:.2e}, dx_out {errs[1][0]:.2e} (tol {tol})")
             if not max(e[0] for e in errs) <= tol:
                 fail(f"K4 disagrees with its plain version ({cd_name}, layer {li})")
@@ -741,7 +928,7 @@ def phase_tangent(wl, wl32, data):
     B = 256
     _, _, h0, xs, ea, _ = states(B)
     cfg, w, packed, ptc = timed["bf16"]
-    cfg32, _, packed32, _ = timed["f32"]
+    cfg32, _, packed32, ptc32 = timed["f32"]
     l0 = bb.layers[0]
     dev = h0.device
     h, x = el.egnn_layer_forward(h0, xs, ea, l0.weights(), packed=l0.packed(dev),
@@ -767,7 +954,7 @@ def phase_tangent(wl, wl32, data):
         before = counts()
         got, ref = run(), plain_all(basis, dh, dx, cfg)
         torch.cuda.synchronize()
-        if counts() != (before[0], before[1] + 1):
+        if counts() != (before[0], before[1] + 1, before[2]):
             fail("the bf16 layer tangent did not launch the tensor-core K4 alone")
         errs = [rel_err(a, b) for a, b in zip(got, ref)]
         worst["bf16"] = max([worst["bf16"]] + [e[1] for e in errs])
@@ -793,13 +980,13 @@ def phase_tangent(wl, wl32, data):
         turns = [cuda_ms(f, reps=5, warmup=1) for f in (scalar, run, run, scalar)]
         ms, ms_s = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain = cuda_ms(lambda: plain_all(basis, dh, dx, cfg), reps=1, warmup=1)
-        # the scalar K4 in f32, its dtype of record, on the same inputs: in
-        # turns at 8 and at 16 (the route's) tangents a block
-        scalar32 = lambda chunk: lambda: et.egnn_layer_tangent(
-            h, x, ea, xs, basis, dh, dx, w, packed=packed32, tangent_chunk=chunk, **cfg32)
-        turns32 = [cuda_ms(scalar32(c), reps=5, warmup=1) for c in (8, 16, 16, 8)]
-        ms32, ms32_8 = (turns32[1] + turns32[2]) / 2, (turns32[0] + turns32[3]) / 2
-        plain32 = cuda_ms(lambda: plain_all(basis, dh, dx, cfg32), reps=1, warmup=1)
+        # the f32 K4 on the same inputs: the 3xTF32 kernel at the fill's
+        # launch (64 chains) and at 256, each against the plain version, in
+        # turns with the scalar K4 at the route's 16 tangents a block
+        f32 = {n: tangent_f32_in_turns(et, (h[:n], x[:n], ea[:n], xs[:n], basis, dh[:n],
+                                            dx[:n]), w, cfg32, packed32, ptc32,
+                                       plain_all if n == B else None)
+               for n in (64, B)}
     E = B * N * (N - 1)
     # the two edge products per tangent, the primal's once, and the node
     # products (src, dst, node MLP) per tangent; the f32 work around them
@@ -808,23 +995,20 @@ def phase_tangent(wl, wl32, data):
     n_bytes = 4 * (2 * B * Tc * N * (F + 3) + B * N * (F + 6) + B * N * N + Tc * N * 3
                    + packed.numel())
     bnd, by = bound_ms(n_bytes, ops, PEAK_BF16, fp32_ops=ew)
-    bnd32, by32 = bound_ms(n_bytes, ops, PEAK_F32, fp32_ops=ew)
-    print(f"[phase 7] bound of K4 B={B} Tc={Tc}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, "
-          f"products {ops / PEAK_BF16 * 1e3:.4f} ms on bf16 tensor cores "
-          f"({ops / PEAK_F32 * 1e3:.4f} ms at the f32 rate), f32 elementwise "
+    print(f"[phase 7] bound of K4 bf16 B={B} Tc={Tc}: bytes {n_bytes / PEAK_BYTES * 1e3:.4f} ms, "
+          f"products {ops / PEAK_BF16 * 1e3:.4f} ms on bf16 tensor cores, f32 elementwise "
           f"{ew / PEAK_FP32_OPS * 1e3:.4f} ms ({ew:.3e} operations at 128/clk/SM, 1.98 GHz) "
-          f"-> bf16 {bnd:.4f} ms ({by}), f32 {bnd32:.4f} ms ({by32})")
+          f"-> {bnd:.4f} ms ({by})")
     print(f"[phase 7] K4 bf16 B={B} Tc={Tc} layer 1: tensor-core kernel {ms:.4f} ms, in turns with "
           f"the scalar K4 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar); "
-          f"plain {plain:.3f} ms; the scalar K4 in f32 at 16 tangents a block {ms32:.4f} ms, "
-          f"at 8 {ms32_8:.4f} ms, in turns {' / '.join(f'{v:.4f}' for v in turns32)} ms "
-          f"(8, 16, 16, 8; plain {plain32:.3f})")
+          f"plain {plain:.3f} ms")
     if not ms < ms_s:
         fail("the tensor-core K4 is not faster than the scalar K4 at the main path's launch")
+    k4_32, k4_32s = f32[B]
+    err32 = max(worst["f32"], k4_32["max_abs_err"], f32[64][0]["max_abs_err"])
     return (dict(max_abs_err=worst["bf16"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                  library_ms=None),
-            dict(max_abs_err=worst["f32"], ms=ms32, plain_ms=plain32, bound_ms=bnd32,
-                 bound_by=by32, library_ms=None))
+            dict(k4_32, max_abs_err=err32), k4_32s)
 
 
 def phase_routes_random_weights(wl, data):
@@ -909,6 +1093,7 @@ def phase_wiring(wl, wl32, data, kernels):
     base = exact_cfg(num_integration_steps=n, end_resampling_step=n, time_range=t0,
                      ess_resampling_threshold=0.0, divergence_chunk_size=64)
     scalar = {"bf16": [0, 0, 0], "f32": [0, 0, 0]}  # of the scalar K2, K3 and K4 by backbone
+    tf32 = [0, 0]  # of the 3xTF32 K2 and K4, f32 backbone
     for name, load in (("bf16", wl), ("f32", wl32)):
         res = {}
         for route, kw in ROUTES.items():
@@ -921,14 +1106,21 @@ def phase_wiring(wl, wl32, data, kernels):
             scalar[name][0] += counts["egnn_layer_forward"]
             scalar[name][1] += counts["egnn_layer_backward"]
             scalar[name][2] += counts["egnn_layer_tangent"]
-            # the K4 route: the tensor-core K4 with the bf16 backbone, the scalar with the f32
-            k4, other = (("egnn_layer_tangent_tc", "egnn_layer_tangent") if name == "bf16" else
-                         ("egnn_layer_tangent", "egnn_layer_tangent_tc"))
+            if name == "f32":
+                tf32[0] += counts["egnn_layer_forward_tf32"]
+                tf32[1] += counts["egnn_layer_tangent_tf32"]
+            # the K4 route: the tensor-core K4 with the bf16 backbone, the 3xTF32 with the f32
+            k4, others = (("egnn_layer_tangent_tc", ("egnn_layer_tangent_tf32",))
+                          if name == "bf16" else
+                          ("egnn_layer_tangent_tf32", ("egnn_layer_tangent_tc",)))
             want = {"g_kernel": "g_operator_contract", "tangent_kernel": k4}
             if route in want and counts[want[route]] == 0:
                 fail(f"the {route} route did not launch {want[route]}")
-            if counts[other] or (route != "tangent_kernel" and counts[k4]):
+            if (any(counts[k] for k in others + ("egnn_layer_tangent",))
+                    or (route != "tangent_kernel" and counts[k4])):
                 fail(f"the {route} route ({name} backbone) launched a K4 it should not")
+            if name == "f32" and counts["egnn_layer_forward_tf32"] == 0:
+                fail(f"the {route} route (f32 backbone) did not launch the 3xTF32 K2")
             if counts["_contract_scalar"]:
                 fail(f"the {route} route ({name} backbone) launched the scalar K5")
         ref = res["materialized"]
@@ -952,12 +1144,15 @@ def phase_wiring(wl, wl32, data, kernels):
                 fail(f"the {route} route's log-weights disagree with the materialized "
                      f"route's ({name})")
     print(f"[phase 8] launches of the scalar K2, K3, K4: f32 backbone's runs {scalar['f32']}, "
-          f"bf16 backbone's runs {scalar['bf16']}")
-    if 0 in scalar["f32"]:
-        fail("the f32 wiring runs did not launch the scalar K2, K3 and K4")
+          f"bf16 backbone's runs {scalar['bf16']}; of the 3xTF32 K2, K4: f32 backbone's runs "
+          f"{tf32}")
+    if scalar["f32"][1] == 0 or 0 in tf32:
+        fail("the f32 wiring runs did not launch the 3xTF32 K2 and K4 and the scalar K3")
+    if scalar["f32"][0] or scalar["f32"][2]:
+        fail("the f32 wiring runs (N = 55) launched the scalar K2 or K4")
     if scalar["bf16"] != [0, 0, 0]:
         fail("the bf16 wiring runs launched a scalar EGCL kernel")
-    return scalar["f32"]
+    return scalar["f32"], tf32
 
 
 def timed_exact_run(wl, x1, cfg, label, kernels, profile):
@@ -985,10 +1180,12 @@ def timed_exact_run(wl, x1, cfg, label, kernels, profile):
           f"{rate:.1f} chain*steps/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {counts}; "
           f"unique ancestors after the last step {int(res.num_unique[-1])}")
-    if counts["egnn_layer_forward_tc"] == 0 or counts["egnn_layer_forward"] != 0:
+    if (counts["egnn_layer_forward_tc"] == 0 or counts["egnn_layer_forward"]
+            or counts["egnn_layer_forward_tf32"]):
         fail(f"{label} did not run the tensor-core EGCL forward kernel alone")
-    if counts["_contract_scalar"] or counts["egnn_layer_tangent"]:
-        fail(f"{label} launched the scalar K5 or the scalar K4")
+    if (counts["_contract_scalar"] or counts["egnn_layer_tangent"]
+            or counts["egnn_layer_tangent_tf32"]):
+        fail(f"{label} launched the scalar K5 or an f32 K4")
     if cfg.divergence_tangent_kernel:
         # the tensor-core K4 per divergence evaluation and chain chunk: 3
         # layers x 3 super-chunks of tangents (64, 64, 37)
@@ -1031,7 +1228,8 @@ def reset_counts(ops):
 
 # the port's own kernels, by their names in a profile
 OWN_KERNELS = ("egcl_fwd_kernel", "egcl_bwd_kernel", "egcl_fwd_tc_kernel", "egcl_bwd_tc_kernel",
-               "egcl_tan_kernel", "egcl_tan_tc_kernel", "g_op_kernel", "g_op_tc_kernel",
+               "egcl_fwd_f32tc_kernel", "egcl_tan_kernel", "egcl_tan_tc_kernel",
+               "egcl_tan_f32tc_kernel", "g_op_kernel", "g_op_tc_kernel",
                "pack_panel_kernel", "lj_pairs_kernel", "lj_scalar_kernel")
 
 
@@ -1370,7 +1568,8 @@ def train_set_in_turns(target):
 
 def layer0_inputs(tr, x_flat):
     """The EMA score net's layer 0 at t = 0.5 on the chains x_flat: its
-    inputs h, x, edge_attr, its weights, config and packed weights."""
+    inputs h, x, edge_attr, its weights, config, packed weights and the
+    3xTF32 kernels' matrices."""
     import torch
 
     from pita_torch.nets.precondition import coeffs
@@ -1384,88 +1583,63 @@ def layer0_inputs(tr, x_flat):
     xs = x_in.reshape(B, N, 3).contiguous()
     h = bb.embed(c_noise, x_in, 1.0).contiguous()
     ea = ((xs[:, :, None] - xs[:, None]) ** 2).sum(-1).contiguous()
-    return h, xs, ea, layer.weights(), layer.cfg, layer.packed(x_flat.device)
-
-
-def k2_bound(h, packed):
-    """The f32 K2's bound at h (B, N, F): h, x and edge_attr read, h and x
-    written, the weights read; the edge and node products; the SFU terms."""
-    B, N, F = h.shape
-    E = B * N * (N - 1)
-    return bound_ms(4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + 4 * packed.numel(),
-                    E * 4 * F * F + B * N * 10 * F * F, PEAK_F32, (3 * F + 2) * E)
+    dev = x_flat.device
+    return h, xs, ea, layer.weights(), layer.cfg, layer.packed(dev), layer.packed(dev, tc=True)
 
 
 def fill_layer_entries(tr, x_flat, counts):
-    """The f32 scalar K2, K3 and K4 at the fill's launches (256 chains for
-    the drift's networks; 64-chain chunks of 64 tangents for the K4 route),
-    on the EMA score net's layer 0: against their plain versions, timed."""
+    """The f32 K2, K3 and K4 at the fill's launches (256 chains for the
+    drift's networks; 64-chain chunks of 64 tangents for the K4 route), on
+    the EMA score net's layer 0: the 3xTF32 K2 and K4 and the scalar K3
+    against their plain versions and timed, the 3xTF32 kernels in turns with
+    their scalar yardsticks."""
     import torch
 
     from pita_torch.ops import egnn_layer as el
     from pita_torch.ops import egnn_tangent as et
 
-    h, xs, ea, w, cfg, packed = layer0_inputs(tr, x_flat)
+    h, xs, ea, w, cfg, packed, ptc = layer0_inputs(tr, x_flat)
     (B, N, F), dev = h.shape, h.device
     gen = torch.Generator(dev).manual_seed(11)
     gh = torch.randn(h.shape, generator=gen, device=dev)
     gx = torch.randn(xs.shape, generator=gen, device=dev)
-    fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
     bwd = lambda: el.egnn_layer_backward(h, xs, ea, gh, gx, w, packed=packed, **cfg)
-    got = (*fwd(), *bwd())
-    with torch.no_grad():
-        ref_f = el.layer_step(h, xs, ea, w, **cfg)
-    ref = (*ref_f, *el.layer_vjp(h, xs, ea, gh, gx, w, **cfg))
+    got = bwd()
+    ref = el.layer_vjp(h, xs, ea, gh, gx, w, **cfg)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    print(f"[phase 11] f32 scalar K3 (B={B}) on the trained EMA weights, layer 0: rel err "
+          + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(("dh", "dx", "dea"), errs))
+          + f" (tol {TOL_F32})")
+    if not max(e[0] for e in errs) <= TOL_F32:
+        fail("the f32 K3 disagrees with its plain version on the trained weights")
+    ms_b = cuda_ms(bwd, reps=10)
+    pl_b = cuda_ms(lambda: el.layer_vjp(h, xs, ea, gh, gx, w, **cfg), reps=3)
+    E = B * N * (N - 1)
+    bb_ = egcl_bound(f"K3 f32 B={B}", 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N)
+                     + 4 * packed.numel(), E * 8 * F * F + 2 * B * N * 10 * F * F, PEAK_3XTF32,
+                     E, F, phase=11)
+    print(f"[phase 11] f32 scalar K3 at the fill's launch: {ms_b:.4f} ms (plain {pl_b:.3f})")
+    k2, _ = k2_f32_in_turns(el, h, xs, ea, w, cfg, packed, ptc,
+                            "the fill's launch, trained EMA weights", 11)
     Tc, Bc = 64, 64
     basis = torch.eye(N * 3, device=dev)[:Tc].reshape(Tc, N, 3).contiguous()
     dh = torch.zeros(Bc, Tc, N, F, device=dev)
     dx = basis[None].expand(Bc, -1, -1, -1).contiguous()
     targs = (h[:Bc], xs[:Bc], ea[:Bc], xs[:Bc], basis, dh, dx)
-    tan = lambda: et.egnn_layer_tangent(*targs, w, packed=packed, **cfg)
-    got_t = tan()
-    with torch.no_grad():
-        ref_t = et.layer_tangent(*targs, w, **cfg)
-    torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip((*got, *got_t), (*ref, *ref_t))]
-    print(f"[phase 11] f32 scalar K2/K3 (B={B}) and K4 (B={Bc}, Tc={Tc}) on the trained EMA "
-          f"weights, layer 0: rel err " + ", ".join(
-              f"{n} {e[0]:.2e}" for n, e in zip(("h_out", "x_out", "dh", "dx", "dea",
-                                                 "dh_tan", "dx_tan"), errs))
-          + f" (tol {TOL_F32})")
-    if not max(e[0] for e in errs) <= TOL_F32:
-        fail("an f32 EGCL kernel disagrees with its plain version on the trained weights")
-    ms_f, ms_b, ms_t = cuda_ms(fwd), cuda_ms(bwd, reps=10), cuda_ms(tan, reps=5, warmup=1)
-    with torch.no_grad():
-        pl_f = cuda_ms(lambda: el.layer_step(h, xs, ea, w, **cfg), reps=5)
-        pl_t = cuda_ms(lambda: et.layer_tangent(*targs, w, **cfg), reps=2, warmup=1)
-    pl_b = cuda_ms(lambda: el.layer_vjp(h, xs, ea, gh, gx, w, **cfg), reps=3)
-    E, Et = B * N * (N - 1), Bc * N * (N - 1)
-    node_ops = B * N * 10 * F * F
-    wbytes = 4 * packed.numel()
-    sfu = lambda e: (3 * F + 2) * e
-    bf = k2_bound(h, packed)
-    bb_ = bound_ms(4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes,
-                   E * 8 * F * F + 2 * node_ops, PEAK_F32, sfu(E))
-    bt = bound_ms(4 * (2 * Bc * Tc * N * (F + 3) + Bc * N * (F + 6) + Bc * N * N + Tc * N * 3)
-                  + wbytes, Tc * Et * 4 * F * F + Et * 4 * F * F
-                  + (Tc + 1) * Bc * N * 10 * F * F, PEAK_F32,
-                  fp32_ops=tangent_fp32_ops(Tc * Et, F))
-    print(f"[phase 11] f32 at the fill's launches: scalar K2 {ms_f:.4f} ms (plain {pl_f:.3f}, "
-          f"bound {bf[0]:.4f} {bf[1]}), scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f}, bound "
-          f"{bb_[0]:.4f} {bb_[1]}), scalar K4 {ms_t:.4f} ms (plain {pl_t:.3f}, bound "
-          f"{bt[0]:.4f} {bt[1]})")
+    k4, _ = tangent_f32_in_turns(et, targs, w, cfg, packed, ptc, phase=11,
+                                 label=f"the fill's launch (B={Bc}, Tc={Tc}), trained EMA weights")
     src = "pita_torch/csrc/"
-    mk = lambda name, file, rep, launches, err, ms, pl, bnd: dict(
+    mk = lambda name, file, rep, launches, fields: dict(
         name=f"{name} (phase 11 fill)", route="cuda", source=src + file,
-        replaces=f"pita_tpu/ops/pallas/egnn_fwd.py:{rep}", launches=launches,
-        max_abs_err=err, ms=ms, plain_ms=pl, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        replaces=f"pita_tpu/ops/pallas/egnn_fwd.py:{rep}", launches=launches, **fields)
     return [
-        mk("egcl_forward", "egnn_layer.cu", 318, counts["egnn_layer_forward"],
-           max(e[1] for e in errs[:2]), ms_f, pl_f, bf),
+        mk("egcl_forward_tf32", "egnn_layer_f32tc.cu", 318, counts["egnn_layer_forward_tf32"], k2),
         mk("egcl_backward", "egnn_layer.cu", 342, counts["egnn_layer_backward"],
-           max(e[1] for e in errs[2:5]), ms_b, pl_b, bb_),
-        mk("egcl_tangent", "egnn_tangent.cu", 365, counts["egnn_layer_tangent"],
-           max(e[1] for e in errs[5:]), ms_t, pl_t, bt),
+           dict(max_abs_err=max(e[1] for e in errs), ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0],
+                bound_by=bb_[1], library_ms=None)),
+        mk("egcl_tangent_tf32", "egnn_tangent_f32tc.cu", 365, counts["egnn_layer_tangent_tf32"],
+           k4),
     ]
 
 
@@ -1626,12 +1800,13 @@ def phase_training(kernels, tmp, profile=False):
           f"(K4 route, 256 chains x 100 steps + the 256-chain no-resampling pass): "
           f"{t_fill:.2f} s; launches {fill_counts}; rung-1 buffer {buf1} rows; "
           + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
-    for k in ("lj_log_prob_and_force", "egnn_layer_forward", "egnn_layer_backward",
-              "egnn_layer_tangent"):
+    for k in ("lj_log_prob_and_force", "egnn_layer_forward_tf32", "egnn_layer_backward",
+              "egnn_layer_tangent_tf32"):
         if fill_counts[k] == 0:
             fail(f"the f32 fill did not launch {k}")
-    for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc", "egnn_layer_tangent_tc",
-              "g_operator_contract", "_contract_scalar", "_lj_scalar"):
+    for k in ("egnn_layer_forward", "egnn_layer_tangent", "egnn_layer_forward_tc",
+              "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "g_operator_contract",
+              "_contract_scalar", "_lj_scalar"):
         if fill_counts[k]:
             fail(f"the f32 fill launched {k}")
     if buf1 == 0 or not math.isfinite(m["val/ess"]) or not math.isfinite(
@@ -1648,23 +1823,45 @@ def phase_training(kernels, tmp, profile=False):
     nets = tr._eval_wrappers()
     anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
     x1 = tr._prior(1.0).sample(256, generator=tr.generator, device="cuda")
+    # (before: the K4 route with the scalar f32 K2 and K4, the rule patched
+    # off in this script for that run)
     route_s = {}
-    for route, kw in (("K4", dict(divergence_tangent_kernel=True)),
+    for route, kw in (("K4, scalar f32 K2 and K4 (before)", dict(divergence_tangent_kernel=True)),
+                      ("K4", dict(divergence_tangent_kernel=True)),
                       ("K5", dict(divergence_tangent_kernel=False, divergence_g_kernel=True)),
                       ("materialized", dict(divergence_tangent_kernel=False))):
         c10 = cfg.integrator.replace(num_integration_steps=10, end_resampling_step=9,
                                      resample_at_end=False, **kw)
-        integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
-                      c10.replace(num_integration_steps=1, end_resampling_step=1),
-                      seed=1, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10,
-                      seed=2, device="cuda")
-        torch.cuda.synchronize()
-        route_s[route] = (time.perf_counter() - t0) / 10
+        with scalar_f32_kernels() if "before" in route else contextlib.nullcontext():
+            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0,
+                          c10.replace(num_integration_steps=1, end_resampling_step=1),
+                          seed=1, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10,
+                          seed=2, device="cuda")
+            torch.cuda.synchronize()
+            route_s[route] = (time.perf_counter() - t0) / 10
     print("[phase 11] one f32 fill step, 256 chains (10 steps timed): "
           + ", ".join(f"{r} route {1e3 * s:.1f} ms" for r, s in route_s.items()))
+    # the f32 K4's launches a step, by torch.profiler over the K4 route's 10
+    # steps, beside the wrapper's counter
+    from torch.profiler import ProfilerActivity, profile
+
+    c10 = cfg.integrator.replace(num_integration_steps=10, end_resampling_step=9,
+                                 resample_at_end=False, divergence_tangent_kernel=True)
+    reset_counts(kernels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        integrate_sde(x1, *nets, tr.noise_schedule, anneal, tr.targets[1], 1.0, c10, seed=2,
+                      device="cuda")
+        torch.cuda.synchronize()
+    n_prof = sum(e.count for e in prof.key_averages() if "egcl_tan_f32tc_kernel" in e.key)
+    n_count = counts()["egnn_layer_tangent_tf32"]
+    print(f"[phase 11] f32 K4 launches over 10 steps of the K4 route at 256 chains: "
+          f"{n_prof} by torch.profiler (egcl_tan_f32tc_kernel), {n_count} by the counter; the "
+          f"fill above launched it {fill_counts['egnn_layer_tangent_tf32']} times")
+    if n_prof != n_count:
+        fail("the profiler and the counter disagree on the f32 K4's launches")
 
     # 4. checkpoint: save, restore into a fresh trainer, compare; save over
     # it; an interrupted save leaves the previous one readable
@@ -1750,32 +1947,18 @@ def idem_inputs(tr):
 
 
 def refill_k2_entry(tr, x_flat, launches):
-    """The f32 scalar K2 at the refill's launch (2,000 chains) on the EMA
-    score net's layer 0 at t = 0.5: against layer_step, timed, its bound."""
-    import torch
-
+    """The f32 K2 at the refill's launch (2,000 chains) on the EMA score
+    net's layer 0 at t = 0.5: the 3xTF32 kernel and the scalar yardstick
+    against layer_step, timed in turns, the bound."""
     from pita_torch.ops import egnn_layer as el
 
-    h, xs, ea, w, cfg, packed = layer0_inputs(tr, x_flat)
-    fwd = lambda: el.egnn_layer_forward(h, xs, ea, w, packed=packed, **cfg)
-    got = fwd()
-    with torch.no_grad():
-        ref = el.layer_step(h, xs, ea, w, **cfg)
-        plain = cuda_ms(lambda: el.layer_step(h, xs, ea, w, **cfg), reps=5)
-    torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(got, ref)]
-    if not max(e[0] for e in errs) <= TOL_F32:
-        fail("the f32 K2 disagrees with its plain version at the refill's 2,000 chains")
-    ms, bnd = cuda_ms(fwd), k2_bound(h, packed)
-    print(f"[phase 12] f32 scalar K2 at the refill's {h.shape[0]} chains (EMA score net, layer "
-          f"0): rel err h_out {errs[0][0]:.2e}, x_out {errs[1][0]:.2e} (tol {TOL_F32}); "
-          f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); {launches} "
-          f"launches")
-    return dict(name="egcl_forward (phase 12 DEM refill, 2000 chains)", route="cuda",
-                source="pita_torch/csrc/egnn_layer.cu",
-                replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=launches,
-                max_abs_err=max(e[1] for e in errs), ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=None)
+    h, xs, ea, w, cfg, packed, ptc = layer0_inputs(tr, x_flat)
+    k2, _ = k2_f32_in_turns(el, h, xs, ea, w, cfg, packed, ptc,
+                            f"the refill's launch ({h.shape[0]} chains, EMA score net)", 12)
+    print(f"[phase 12] the 3xTF32 K2 launched {launches} times in the refill")
+    return dict(name=f"egcl_forward_tf32 (phase 12 DEM refill, {h.shape[0]} chains)", route="cuda",
+                source="pita_torch/csrc/egnn_layer_f32tc.cu",
+                replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=launches, **k2)
 
 
 def profile_dem_steps(tr, n=3):
@@ -1868,10 +2051,11 @@ def phase_dem(kernels, tmp, data_dir):
         fail(f"K1 did not launch once per DEM step at {B * K} configurations")
     if size0 != n_init + n_refill:
         fail(f"the refill did not add {n_refill} rows to buffer 0")
-    if fit_counts["egnn_layer_forward"] != 3 * dem.num_integration_steps:
-        fail(f"the refill launched the f32 K2 {fit_counts['egnn_layer_forward']} times, not "
-             f"{3 * dem.num_integration_steps}")
-    for k in ("egnn_layer_backward", "egnn_layer_tangent", "egnn_layer_forward_tc",
+    if fit_counts["egnn_layer_forward_tf32"] != 3 * dem.num_integration_steps:
+        fail(f"the refill launched the 3xTF32 K2 {fit_counts['egnn_layer_forward_tf32']} times, "
+             f"not {3 * dem.num_integration_steps}")
+    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent",
+              "egnn_layer_tangent_tf32", "egnn_layer_forward_tc",
               "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "g_operator_contract",
               "_contract_scalar", "_lj_scalar"):
         if fit_counts[k]:
@@ -1934,7 +2118,38 @@ def phase_dem(kernels, tmp, data_dir):
     if not r_loss <= TOL_STEP:
         fail("the force-based pretraining loss on the card disagrees with the CPU")
     del cpu_tr
-    k2_row = refill_k2_entry(tr, tr.buffers.x[0, n_init:size0], fit_counts["egnn_layer_forward"])
+    k2_row = refill_k2_entry(tr, tr.buffers.x[0, n_init:size0],
+                             fit_counts["egnn_layer_forward_tf32"])
+    # the refill's sampling before (the scalar f32 K2, the rule patched off in
+    # this script for that run) and after (the 3xTF32 K2): the same
+    # integration as eval_epoch_end_dem's, buffers untouched
+    cfg_dem = tr.integrator_cfg.replace(
+        num_integration_steps=dem.num_integration_steps, debias_inference=False,
+        resampling_interval=-1, resample_at_end=False, start_resampling_step=0,
+        end_resampling_step=dem.num_integration_steps)
+    beta0 = float(tr.inverse_temperatures[0])
+
+    def refill_s_by(kernel):
+        reset_counts(kernels)
+        with scalar_f32_kernels() if kernel == "scalar" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.generate_samples(target0, n_refill, inverse_temp=beta0, annealing_factor=1.0,
+                                integrator_cfg=cfg_dem)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        c = counts()
+        want = "egnn_layer_forward" if kernel == "scalar" else "egnn_layer_forward_tf32"
+        if c[want] != 3 * dem.num_integration_steps:
+            fail(f"the {kernel} refill did not launch {want} {3 * dem.num_integration_steps} "
+                 f"times")
+        return t
+
+    turns = [refill_s_by(k) for k in ("scalar", "3xTF32", "3xTF32", "scalar")]
+    print(f"[phase 12] the refill's sampling ({n_refill} chains x {dem.num_integration_steps} "
+          f"steps), in turns: scalar f32 K2 (before) {turns[0]:.2f}, {turns[3]:.2f} s; 3xTF32 "
+          f"K2 (after) {turns[1]:.2f}, {turns[2]:.2f} s; the fit's refill above "
+          f"{', '.join(f'{v:.2f}' for v in refill_s)} s with its metrics")
     return [k1_row, k2_row], tr
 
 
@@ -2060,12 +2275,13 @@ def phase_clis(kernels, tmp, ckpt, data_dir):
           f"test set at T=1.5; launches {c}")
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         fail("eval_cli's test metrics are missing or not finite")
-    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent"):
+    for k in ("egnn_layer_forward_tf32", "egnn_layer_backward", "egnn_layer_tangent_tf32"):
         if not c[k]:
             fail(f"eval_cli's test did not launch {k}")
-    if any(c[k] for k in ("egnn_layer_forward_tc", "egnn_layer_backward_tc",
-                          "egnn_layer_tangent_tc", "_lj_scalar")):
-        fail("eval_cli's f32 test launched a tensor-core kernel or the first K1")
+    if any(c[k] for k in ("egnn_layer_forward", "egnn_layer_tangent", "egnn_layer_forward_tc",
+                          "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "_lj_scalar")):
+        fail("eval_cli's f32 test launched a scalar K2 or K4, a bf16 tensor-core kernel or the "
+             "first K1")
 
     lj13 = ["experiment=lj13", "debug=short", "device=cuda", "test=false",
             f"energy.data_dir={os.path.join(tmp, 'data13')}"]
@@ -2625,8 +2841,8 @@ def phase_lj_sampler_modes(kernels, wl, wl32):
         fail("the hutchpp run gave non-finite samples or weights")
     if not (c["egnn_layer_forward_tc"] and c["egnn_layer_backward_tc"]):
         fail("the hutchpp run did not launch the tensor-core K2 and K3")
-    if any(c[k] for k in ("egnn_layer_tangent", "egnn_layer_tangent_tc", "g_operator_contract",
-                          "_contract_scalar")):
+    if any(c[k] for k in ("egnn_layer_tangent", "egnn_layer_tangent_tc",
+                          "egnn_layer_tangent_tf32", "g_operator_contract", "_contract_scalar")):
         fail("the hutchpp run launched K4 or K5")
     out["hutchpp_step_ms"] = ms
 
@@ -3028,6 +3244,7 @@ def phase_sharded_sampling(kernels, wl, group):
             fail(f"phase 15: the sharded {label} run did not launch K2 and K3 (tensor cores)")
         if any(ln[k] for k in ("egnn_layer_forward", "egnn_layer_backward", "_contract_scalar",
                                "_lj_scalar", "egnn_layer_tangent", "egnn_layer_tangent_tc",
+                               "egnn_layer_forward_tf32", "egnn_layer_tangent_tf32",
                                "g_operator_contract")):
             fail(f"phase 15: the sharded {label} run launched a scalar, yardstick or "
                  f"exact-divergence kernel")
@@ -3323,8 +3540,10 @@ def main():
     from pita_torch.io.bench_asset import load_lj55_bench
     from pita_torch.ops import _build
     from pita_torch.ops.egnn_layer import (egnn_layer_backward, egnn_layer_backward_tc,
-                                           egnn_layer_forward, egnn_layer_forward_tc)
-    from pita_torch.ops.egnn_tangent import egnn_layer_tangent, egnn_layer_tangent_tc
+                                           egnn_layer_forward, egnn_layer_forward_tc,
+                                           egnn_layer_forward_tf32)
+    from pita_torch.ops.egnn_tangent import (egnn_layer_tangent, egnn_layer_tangent_tc,
+                                             egnn_layer_tangent_tf32)
     from pita_torch.ops.g_op import _contract_scalar, g_operator_contract
     from pita_torch.ops.lj import _lj_scalar, lj_log_prob_and_force
     from pita_torch.sampler import integrate_sde
@@ -3338,8 +3557,9 @@ def main():
                 print(f"[phase 1] {name}: {ln.strip()}")
 
     kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
-               egnn_layer_backward, egnn_layer_backward_tc, egnn_layer_tangent,
-               egnn_layer_tangent_tc, g_operator_contract, _contract_scalar, _lj_scalar)
+               egnn_layer_forward_tf32, egnn_layer_backward, egnn_layer_backward_tc,
+               egnn_layer_tangent, egnn_layer_tangent_tc, egnn_layer_tangent_tf32,
+               g_operator_contract, _contract_scalar, _lj_scalar)
     if "--training-only" in sys.argv[1:]:  # quick check of the training path
         with tempfile.TemporaryDirectory() as tmp:
             phase_training(kernels, tmp, "--profile" in sys.argv[1:])
@@ -3373,7 +3593,7 @@ def main():
     k1, k1_scalar = phase_lj(data)
     eg = phase_egcl(wl, data)
     k5, k5_scalar = phase_g_op(wl, data)
-    k4, k4_scalar = phase_tangent(wl, wl32, data)
+    k4, k4_f32, k4_f32_scalar = phase_tangent(wl, wl32, data)
     if "--kernels-only" in sys.argv[1:]:  # quick check of a kernel change
         return 0
 
@@ -3427,7 +3647,9 @@ def main():
             fail(f"energy W2 against ground truth {w2_gt:.3f} > 2 sigma_GT {2 * spread:.3f}")
 
     # phase 8: every route of the exact divergence gives the same weights
-    k2_f32_launches, k3_f32_launches, k4_f32_launches = phase_wiring(wl, wl32, data, kernels)
+    (k2_scalar_launches, k3_f32_launches, k4_scalar_launches), (k2_tf32_launches,
+                                                                k4_tf32_launches) = phase_wiring(
+        wl, wl32, data, kernels)
     phase_routes_random_weights(wl, data)
 
     # phase 9: the second main path, timed, once per route
@@ -3449,7 +3671,8 @@ def main():
     if k5_launches == 0 or k4_launches == 0:
         fail("the exact-divergence main path did not launch K4/K5")
     if any(ex_counts["materialized"][k] for k in ("g_operator_contract", "egnn_layer_tangent",
-                                                  "egnn_layer_tangent_tc")):
+                                                  "egnn_layer_tangent_tc",
+                                                  "egnn_layer_tangent_tf32")):
         fail("the materialized route launched a divergence kernel")
 
     # phase 10: quality of the exact-divergence population, on the faster kernel route
@@ -3493,10 +3716,16 @@ def main():
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:318",
              launches=main_counts["egnn_layer_forward_tc"],
              max_abs_err=max(eg["bf16"][0], eg["fwd_extra_err"]), library_ms=None, **eg["fwd"]),
-        # the f32 K2: launches from the f32 backbone's runs of phase 8
-        dict(name="egcl_forward", route="cuda", source=src + "egnn_layer.cu",
-             replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=k2_f32_launches,
-             max_abs_err=eg["f32"][0], library_ms=None, **eg["fwd_f32"]),
+        # the f32 K2 at the DEM refill's 2,000 chains: launches from the f32
+        # backbone's runs of phase 8; the scalar K2, timed as the yardstick
+        # (phases 8, 11 and 12 require that no f32 path at N = 55 launches it)
+        dict(name="egcl_forward_tf32", route="cuda", source=src + "egnn_layer_f32tc.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=k2_tf32_launches,
+             **dict(eg["fwd_f32"], max_abs_err=max(eg["f32"][0],
+                                                   eg["fwd_f32"]["max_abs_err"]))),
+        dict(name="egcl_forward_scalar", route="cuda", source=src + "egnn_layer.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:318", launches=k2_scalar_launches,
+             **eg["fwd_f32_scalar"]),
         dict(name="egcl_backward_tc", route="cuda", source=src + "egnn_layer_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:342",
              launches=main_counts["egnn_layer_backward_tc"],
@@ -3507,10 +3736,15 @@ def main():
              max_abs_err=eg["f32"][1], library_ms=None, **eg["bwd_f32"]),
         dict(name="egcl_tangent_tc", route="cuda", source=src + "egnn_tangent_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_launches, **k4),
-        # the f32 K4: launches from the f32 backbone's runs of phase 8
-        dict(name="egcl_tangent", route="cuda", source=src + "egnn_tangent.cu",
-             replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_f32_launches,
-             **k4_scalar),
+        # the f32 K4 at 256 chains x 64 tangents: launches from the f32
+        # backbone's runs of phase 8; the scalar K4, timed as the yardstick
+        # (phases 8 and 11 require that no f32 path at N = 55 launches it)
+        dict(name="egcl_tangent_tf32", route="cuda", source=src + "egnn_tangent_f32tc.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_tf32_launches,
+             **k4_f32),
+        dict(name="egcl_tangent_scalar", route="cuda", source=src + "egnn_tangent.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_scalar_launches,
+             **k4_f32_scalar),
         dict(name="g_operator_contract_tc", route="cuda", source=src + "g_op.cu",
              replaces="pita_tpu/ops/pallas/g_op.py:133", launches=k5_launches, **k5),
         # the scalar K5, timed as the yardstick; phases 8 and 9 require that

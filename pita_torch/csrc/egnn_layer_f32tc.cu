@@ -36,7 +36,7 @@
 //  - Shared memory holds what the warps read at every step: W_e2 and W_c1
 //    in TF32 hi + lo fragment layout (a lane's B fragment is one float4), the
 //    per-feature vectors, src (rows of F + 8: a warp reads 8 rows at once, on
-//    distinct banks), dst and x; 33.2 KB at F = 32, N = 55. The src/dst
+//    distinct banks), dst and x; 33.7 KB at F = 32, N = 55. The src/dst
 //    projection's and the node MLP's matrices are read from global memory
 //    once per block. edge_attr is read from global memory.
 //  - Padded rows (i >= N) run row N - 1's values and are not stored; the

@@ -49,7 +49,7 @@
 //    receiver or a block, come from global memory (L2).
 //  - Shared memory: those matrices, ddst of the chunk (f32, rows of F + 8),
 //    its dx and basis, src, dst, x, xs0 and edge_attr of the chain, per warp
-//    the tile's edge geometry, the dsrc rows and the sum slots: 168,752 bytes
+//    the tile's edge geometry, the dsrc rows and the sum slots: 169,856 bytes
 //    at N = 55, F = 32, tc = 8, so the chunk is 8 tangents (16 would not fit)
 //    and one block of 8 warps an SM.
 //  - Padding: a sender row past N, or on the diagonal, runs the diagonal's
@@ -532,7 +532,7 @@ int launch_tan_f32tc(const float* h, const float* x, const float* ea, const floa
 }  // namespace
 
 // Largest N and tangents a block the kernel takes (the largest block, N =
-// 64, F = 32, tc = 8, needs 190,656 bytes of shared memory).
+// 64, F = 32, tc = 8, needs 190,736 bytes of shared memory).
 extern "C" int pita_egcl_tangent_tf32_max_n() { return kT32MaxN; }
 extern "C" int pita_egcl_tangent_tf32_max_chunk() { return kT32MaxTc; }
 
