@@ -51,18 +51,12 @@ def qmc_resample(log_weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp(idx, 0, B - 1)
 
 
-def birth_probs(accum_birth: torch.Tensor) -> torch.Tensor:
-    """The replacement distribution of ``birth_death_resample``: accumulated
-    birth weights normalized; a caller draws the replacement ids from
-    log(clip(p, 1e-12, 1)) as pita_tpu does."""
-    return accum_birth / torch.clamp(accum_birth.sum(), min=1e-12)
-
-
 def birth_death_resample(accum_birth, accum_death, thresh_times, replace_ids, new_thresh):
     """Birth–death clock resampling (global-transition variant): chains whose
     accumulated death clock reached their threshold take the replacement id
-    drawn for them (``replace_ids``, (B,), from ``birth_probs``), a fresh
-    threshold (``new_thresh``, (B,) Exp(1) draws) and reset clocks.
+    drawn for them (``replace_ids``, (B,), categorical draws with
+    probabilities proportional to ``accum_birth``), a fresh threshold
+    (``new_thresh``, (B,) Exp(1) draws) and reset clocks.
 
     Returns (ids, accum_birth, accum_death, thresh_times, n_killed).
     """

@@ -13,14 +13,24 @@ spills, its error against the plain versions and its times (A B C D D C B
 A): K2 at 2,000 chains, K4 at 64 and 256 chains x 64 tangents, N = 55, F =
 32, the bench's layer 1.
 """
-import ctypes, os, shutil, subprocess, sys, tempfile, time
-import torch
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from pita_torch.ops import _build, egnn_layer as el, egnn_tangent as et
-from pita_torch.io.bench_asset import BENCH_ASSET
-from pita_torch.io.flax_params import load_egnn_params
-from pita_torch.nets import EGNNBackbone
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
 import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from pita_torch.io.bench_asset import BENCH_ASSET  # noqa: E402
+from pita_torch.io.flax_params import load_egnn_params  # noqa: E402
+from pita_torch.nets import EGNNBackbone  # noqa: E402
+from pita_torch.ops import _build  # noqa: E402
+from pita_torch.ops import egnn_layer as el  # noqa: E402
+from pita_torch.ops import egnn_tangent as et  # noqa: E402
 
 SPLIT_OLD = """    float d[4] = {acc[0][2 * nt], acc[0][2 * nt + 1], acc[1][2 * nt], acc[1][2 * nt + 1]};
 #pragma unroll
@@ -49,95 +59,133 @@ SPLIT_NEW = """    float d[4] = {acc[0][2 * nt], acc[0][2 * nt + 1], acc[1][2 * 
     acc[0][2 * nt + 1] = d[1] + e[1];
     acc[1][2 * nt] = d[2] + e[2];
     acc[1][2 * nt + 1] = d[3] + e[3];"""
-VARIANTS = {  # name: (split accumulators, K2 min blocks, K4 u-loop unroll 2)
-    "A": (False, 4, False), "B": (True, 4, False), "C": (True, 3, True), "D": (False, 3, False),
-}
-root = tempfile.mkdtemp()
-jobs = []
-nvcc = _build.nvcc_path()
-for v, (split, minb, unroll) in VARIANTS.items():
-    d = os.path.join(root, v)
-    shutil.copytree(_build.CSRC, d)
-    if split:
-        p = os.path.join(d, "mma_tf32.cuh"); s = open(p).read(); assert SPLIT_OLD in s
-        open(p, "w").write(s.replace(SPLIT_OLD, SPLIT_NEW))
-    p = os.path.join(d, "egnn_layer_f32tc.cu"); s = open(p).read()
-    open(p, "w").write(s.replace("constexpr int kF32MinBlocks = 4;", f"constexpr int kF32MinBlocks = {minb};"))
-    if unroll:
-        p = os.path.join(d, "egnn_tangent_f32tc.cu"); s = open(p).read()
-        old = "      for (int u = 0; u < nt; ++u) {\n        const float4 dxi"
-        assert old in s
-        open(p, "w").write(s.replace(old, "#pragma unroll 2\n" + old))
-    for name in ("egnn_layer_f32tc", "egnn_tangent_f32tc"):
-        out = os.path.join(d, f"lib{name}.so")
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", out, os.path.join(d, f"{name}.cu")]
-        jobs.append((v, name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-libs = {}
-for v, name, out, proc in jobs:
-    log = proc.communicate()[0].decode()
-    if proc.returncode:
-        print("BUILD FAILED", v, name, log[-3000:]); sys.exit(1)
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(v, name, ln.strip())
-    lib = ctypes.CDLL(out)
-    if name == "egnn_layer_f32tc":
-        lib.pita_egcl_tf32_weights_len.argtypes = [ctypes.c_int]; lib.pita_egcl_tf32_weights_len.restype = ctypes.c_int
-        lib.pita_egcl_forward_tf32.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        lib.pita_egcl_forward_tf32.restype = ctypes.c_int
-    else:
-        lib.pita_egcl_tangent_tf32.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        lib.pita_egcl_tangent_tf32.restype = ctypes.c_int
-    libs[(v, name)] = lib
+# name: (split accumulators, K2's blocks an SM, K4's tangent loop unrolled by 2)
+VARIANTS = {"A": (False, 4, False), "B": (True, 4, False), "C": (True, 3, True),
+            "D": (False, 3, False)}
+SOURCES = ("egnn_layer_f32tc", "egnn_tangent_f32tc")
+TANGENT_LOOP = "      for (int u = 0; u < nt; ++u) {\n        const float4 dxi"
 
-def use(v):
-    el._lib_tf32 = lambda: libs[(v, "egnn_layer_f32tc")]
-    et._lib_tf32 = lambda: libs[(v, "egnn_tangent_f32tc")]
 
-def ms(fn, reps, warm=2):
-    for _ in range(warm): fn()
+def edit(path, old, new):
+    text = open(path).read()
+    if old not in text:
+        raise RuntimeError(f"{path}: the text to edit is not there")
+    open(path, "w").write(text.replace(old, new))
+
+
+def build_variants(root):
+    """Each variant's two libraries, built by nvcc in parallel, with ctypes
+    signatures as the wrappers set them; prints registers and spills."""
+    nvcc, jobs = _build.nvcc_path(), []
+    for v, (split, blocks, unroll) in VARIANTS.items():
+        d = os.path.join(root, v)
+        shutil.copytree(_build.CSRC, d)
+        if split:
+            edit(os.path.join(d, "mma_tf32.cuh"), SPLIT_OLD, SPLIT_NEW)
+        edit(os.path.join(d, "egnn_layer_f32tc.cu"), "constexpr int kF32MinBlocks = 4;",
+             f"constexpr int kF32MinBlocks = {blocks};")
+        if unroll:
+            edit(os.path.join(d, "egnn_tangent_f32tc.cu"), TANGENT_LOOP,
+                 "#pragma unroll 2\n" + TANGENT_LOOP)
+        for name in SOURCES:
+            out = os.path.join(d, f"lib{name}.so")
+            cmd = [nvcc, *_build.NVCC_FLAGS, "-o", out, os.path.join(d, f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            jobs.append((v, name, out, proc))
+    libs = {}
+    for v, name, out, proc in jobs:
+        log = proc.communicate()[0].decode()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {v}, {name}:\n{log}")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(v, name, ln.strip())
+        lib = ctypes.CDLL(out)
+        if name == "egnn_layer_f32tc":
+            lib.pita_egcl_tf32_weights_len.argtypes = [ctypes.c_int]
+            lib.pita_egcl_tf32_weights_len.restype = ctypes.c_int
+            lib.pita_egcl_forward_tf32.argtypes = (
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+            lib.pita_egcl_forward_tf32.restype = ctypes.c_int
+        else:
+            lib.pita_egcl_tangent_tf32.argtypes = (
+                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            lib.pita_egcl_tangent_tf32.restype = ctypes.c_int
+        libs[v, name] = lib
+    return libs
+
+
+def cuda_ms(fn, reps, warmup=2):
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     s.record()
-    for _ in range(reps): fn()
-    e.record(); torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
 
-dev = torch.device("cuda")
-bb = EGNNBackbone(55, hidden_nf=32, n_layers=3)
-bb.load_state_dict(load_egnn_params(np.load(BENCH_ASSET)["energy_params"], 3))
-w = {f: v.to(dev) for f, v in bb.layers[1].weights().items()}
-cfg = dict(attention=True, tanh=True, coords_range=5.0, cd=torch.float32)
-packed, ptc = el.pack_weights(w).to(dev), el.pack_weights_tf32(w).to(dev)
-g = torch.Generator(device=dev).manual_seed(0)
-N, F = 55, 32
-x = torch.randn(2000, N, 3, generator=g, device=dev) * 0.6
-h = torch.randn(2000, N, F, generator=g, device=dev)
-ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
-with torch.no_grad():
-    ref2 = [torch.cat(p) for p in zip(*(el.layer_step(h[s:s+500], x[s:s+500], ea[s:s+500], w, **cfg) for s in range(0, 2000, 500)))]
-Tc = 64
-basis = torch.eye(3 * N, device=dev)[:Tc].reshape(Tc, N, 3).contiguous()
-def targs(B):
-    dh = torch.randn(B, Tc, N, F, generator=g, device=dev) * 0.1
-    dx = basis[None].expand(B, -1, -1, -1).contiguous()
-    return (h[:B].contiguous(), x[:B].contiguous(), ea[:B].contiguous(), x[:B].contiguous(), basis, dh, dx)
-t64, t256 = targs(64), targs(256)
-with torch.no_grad():
-    ref4 = et.layer_tangent(*t64, w, **cfg)
-k2 = lambda: el.egnn_layer_forward_tf32(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
-k4 = lambda a: lambda: et.egnn_layer_tangent_tf32(*a, w, packed=packed, packed_tc=ptc, **cfg)
-order = list(VARIANTS) + list(VARIANTS)[::-1]
-res = {v: {"k2": [], "k4_64": [], "k4_256": []} for v in VARIANTS}
-for v in VARIANTS:
-    use(v)
-    a = k2(); b = k4(t64)(); torch.cuda.synchronize()
-    e2 = max(float((p - q).abs().max() / q.abs().max()) for p, q in zip(a, ref2))
-    e4 = max(float((p - q).abs().max() / q.abs().max()) for p, q in zip(b, ref4))
-    print(f"variant {v} {VARIANTS[v]}: K2 rel err {e2:.2e}, K4 rel err {e4:.2e}")
-for v in order:
-    use(v)
-    res[v]["k2"].append(ms(k2, 20)); res[v]["k4_64"].append(ms(k4(t64), 10)); res[v]["k4_256"].append(ms(k4(t256), 5))
-for v in VARIANTS:
-    print(f"variant {v} {VARIANTS[v]}: " + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in res[v].items()))
-print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+
+def rel_err(got, ref):
+    return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref))
+
+
+def main():
+    with tempfile.TemporaryDirectory() as root:
+        libs = build_variants(root)
+
+        def use(v):  # the wrappers' libraries, swapped for the variant's
+            el._lib_tf32 = lambda: libs[v, "egnn_layer_f32tc"]
+            et._lib_tf32 = lambda: libs[v, "egnn_tangent_f32tc"]
+
+        dev = torch.device("cuda")
+        bb = EGNNBackbone(55, hidden_nf=32, n_layers=3)
+        bb.load_state_dict(load_egnn_params(np.load(BENCH_ASSET)["energy_params"], 3))
+        w = {f: t.to(dev) for f, t in bb.layers[1].weights().items()}
+        cfg = dict(attention=True, tanh=True, coords_range=5.0, cd=torch.float32)
+        packed, ptc = el.pack_weights(w).to(dev), el.pack_weights_tf32(w).to(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        B, N, F, Tc = 2000, 55, 32, 64
+        x = torch.randn(B, N, 3, generator=g, device=dev) * 0.6
+        h = torch.randn(B, N, F, generator=g, device=dev)
+        ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+        with torch.no_grad():
+            ref2 = [torch.cat(p) for p in zip(*(
+                el.layer_step(h[c:c + 500], x[c:c + 500], ea[c:c + 500], w, **cfg)
+                for c in range(0, B, 500)))]
+        basis = torch.eye(3 * N, device=dev)[:Tc].reshape(Tc, N, 3).contiguous()
+
+        def tangent_args(n):
+            dh = torch.randn(n, Tc, N, F, generator=g, device=dev) * 0.1
+            dx = basis[None].expand(n, -1, -1, -1).contiguous()
+            return h[:n], x[:n], ea[:n], x[:n], basis, dh, dx
+
+        t64, t256 = tangent_args(64), tangent_args(256)
+        with torch.no_grad():
+            ref4 = et.layer_tangent(*t64, w, **cfg)
+        k2 = lambda: el.egnn_layer_forward_tf32(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
+        k4 = lambda a: lambda: et.egnn_layer_tangent_tf32(*a, w, packed=packed, packed_tc=ptc,
+                                                          **cfg)
+        for v in VARIANTS:
+            use(v)
+            got2, got4 = k2(), k4(t64)()
+            torch.cuda.synchronize()
+            print(f"variant {v} {VARIANTS[v]}: K2 rel err {rel_err(got2, ref2):.2e}, "
+                  f"K4 rel err {rel_err(got4, ref4):.2e}")
+        times = {v: {"k2": [], "k4_64": [], "k4_256": []} for v in VARIANTS}
+        for v in list(VARIANTS) + list(VARIANTS)[::-1]:
+            use(v)
+            times[v]["k2"].append(cuda_ms(k2, 20))
+            times[v]["k4_64"].append(cuda_ms(k4(t64), 10))
+            times[v]["k4_256"].append(cuda_ms(k4(t256), 5))
+        for v, row in times.items():
+            print(f"variant {v} {VARIANTS[v]}: " + ", ".join(
+                f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in row.items()))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()
