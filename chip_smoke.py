@@ -19,14 +19,15 @@ Phases, each printing lines, each failing the run on disagreement:
      the new K1's device time at every lane count beside the rule's pick;
   3. K2 (EGCL forward) against layer_step and K3 (EGCL VJP) against autograd
      through layer_step: bench weights, each of the 3 layers, 2048 chains,
-     N=55, in f32 (the 3xTF32 K2 and the scalar K3) and bf16 (the
-     tensor-core K2 and K3); the tensor-core kernels also on first-step
-     inputs (prior samples at t = 1), at the Hutchinson launch's 4096 chains
-     and at LJ13's N = 13; the f32 K2 at the fill's 256 chains, the DEM
-     refill's 2,000 and 2,048, the 3xTF32 kernel and the scalar yardstick
-     each against layer_step, the 3xTF32 one launched twice for a
-     bitwise-equal result and both timed in turns; every K2 and K3 timed,
-     the scalar K2 also in bf16 beside the tensor-core one;
+     N=55, in f32 (the 3xTF32 K2 and K3) and bf16 (the tensor-core K2 and
+     K3); the tensor-core kernels also on first-step inputs (prior samples
+     at t = 1), at the Hutchinson launch's 4096 chains and at LJ13's N = 13;
+     the f32 K2 at the fill's 256 chains, the DEM refill's 2,000 and 2,048,
+     and the f32 K3 at the fill's 256 and 2,048, the 3xTF32 kernel and the
+     scalar yardstick each against the plain version, the 3xTF32 one
+     launched twice for a bitwise-equal result and both timed in turns; the
+     3xTF32 K3 also on first-step inputs and at LJ13's N = 13; every K2 and
+     K3 timed, the scalar K2 also in bf16 beside the tensor-core one;
   4. the first main path, timed: bench_lj55.npz through the port's decoder,
      the hutch_ess_k10 configuration of bench.py at 2048 chains x 100 steps
      after one warm-up; it must launch the tensor-core K2 (630 times) and K3,
@@ -59,9 +60,9 @@ Phases, each printing lines, each failing the run on disagreement:
      weights accumulating in every step and resampling never firing, same
      draws: the K5 route and the K4 route each against the materialized-G
      route; samples identical, final log-weights within tolerance, with the
-     bf16 and with an f32 backbone (whose runs must launch the 3xTF32 K2,
-     the scalar K3 and, on the K4 route, the 3xTF32 K4, and the scalar K2
-     and K4 never; the bf16 runs no scalar kernel; no run the scalar K5);
+     bf16 and with an f32 backbone (whose runs must launch the 3xTF32 K2
+     and K3 and, on the K4 route, the 3xTF32 K4, and the scalar K2, K3 and
+     K4 never; the bf16 runs no scalar kernel; no run the scalar K5);
      then the trace by the three routes on a full-width backbone with
      random weights, where the G-operator term is not as small as on the
      trained ones; the bf16 runs of the K4 route must launch the tensor-core
@@ -85,8 +86,8 @@ Phases, each printing lines, each failing the run on disagreement:
      kernel launched, one step on the card against the same step on the CPU
      at batch 64, and the EMA's kernel buffers repacked), one rung
      transition's fill by evaluate through the K4 route (256 chains x 100
-     steps; K1, the 3xTF32 K2 and K4 and the scalar K3 must launch, no
-     scalar K2 or K4 and no bf16 kernel; finite weights and energies; the
+     steps; K1 and the 3xTF32 K2, K3 and K4 must launch, no scalar K2, K3
+     or K4 and no bf16 kernel; finite weights and energies; the
      rung-1 buffer filled; no escalated retry), K1 and the f32 K2/K3/K4
      compared and timed at those launches (K1's device time also by
      torch.profiler, which must find it; the 3xTF32 kernels in turns with
@@ -275,9 +276,10 @@ def egcl_bound(label, n_bytes, n_ops, peak_ops, n_edges, F, phase=3):
 
 @contextlib.contextmanager
 def scalar_f32_kernels():
-    """The f32 K2 and K4 on their scalar yardsticks for one timing: the rule
-    egnn_layer.tf32_takes answers False in both dispatching modules while
-    the block runs (the port has no switch for it)."""
+    """The f32 K2, K3 and K4 on their scalar yardsticks for one timing: the
+    rule egnn_layer.tf32_takes answers False in both dispatching modules
+    (egnn_layer for K2 and K3, egnn_tangent for K4) while the block runs
+    (the port has no switch for it)."""
     from pita_torch.ops import egnn_layer as el
     from pita_torch.ops import egnn_tangent as et
 
@@ -461,7 +463,7 @@ def phase_egcl(wl, data):
             cfg = dict(layer.cfg, cd=cd)
             w = layer.weights()
             packed = el.pack_weights(w, cd).cuda()
-            # the tensor-core kernels' matrices: bf16 (K2, K3), TF32 hi + lo (the f32 K2)
+            # the tensor-core kernels' matrices: bf16 (K2, K3), TF32 hi + lo (f32 K2, K3)
             ptc = (el.pack_weights_tc(w) if cd == torch.bfloat16 else el.pack_weights_tf32(w)).cuda()
             gh = torch.randn(h.shape, generator=gen, device="cuda")
             gx = torch.randn(x.shape, generator=gen, device="cuda")
@@ -490,17 +492,34 @@ def phase_egcl(wl, data):
     return res
 
 
-def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
-    """Layer 0 at the main path's shapes: times and bounds of K2 and K3. For
-    bf16 also the scalar K2 timed beside the tensor-core one, and the
-    tensor-core K2 and K3 against the plain versions on first-step inputs,
-    at the Hutchinson launch's 4096 chains and at LJ13's N = 13. Returns the
-    JSON fields by kernel."""
+def first_step_inputs(wl, B, N, gen):
+    """Layer 0's h, x and edge_attr on the inputs of the first EM step (prior
+    samples at t = 1), where many activations are far from 0."""
     import torch
 
     from pita_torch.nets.precondition import coeffs
 
+    bb = wl.energy.backbone
+    _, c_in1, _, c_noise1 = coeffs(wl.noise.h(torch.ones(B, device="cuda")))
+    xp = torch.randn(B, N, 3, generator=gen, device="cuda") * wl.prior_scale
+    xp = (xp * c_in1[:, None, None]).contiguous()
+    f1 = torch.stack([c_noise1, torch.ones_like(c_noise1)], -1)[:, None, :]
+    hp = (f1.expand(B, N, 2) @ bb.w_emb + bb.b_emb).contiguous()
+    eap = ((xp[:, :, None] - xp[:, None]) ** 2).sum(-1).contiguous()
+    return hp, xp, eap
+
+
+def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
+    """Layer 0 at the main path's shapes: times and bounds of K2 and K3 (f32:
+    egcl_layer0_f32). For bf16 also the scalar K2 timed beside the
+    tensor-core one, and the tensor-core K2 and K3 against the plain versions
+    on first-step inputs, at the Hutchinson launch's 4096 chains and at
+    LJ13's N = 13. Returns the JSON fields by kernel."""
+    import torch
+
     B, N, F = h.shape
+    if cd_name == "f32":
+        return egcl_layer0_f32(wl, el, cfg, w, packed, ptc, h, x, ea, gh, gx)
     fwd = lambda *a: el.egnn_layer_forward(*a, w, packed=packed, packed_tc=ptc, **cfg)
     bwd = lambda *a: el.egnn_layer_backward(*a, w, packed=packed, packed_tc=ptc, **cfg)
     ms_b = cuda_ms(lambda: bwd(h, x, ea, gh, gx), reps=10)
@@ -511,17 +530,12 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     io_f = 4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + wbytes
     io_b = 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes
     # edge products: 2 F x F matmuls forward; the VJP rebuilds them and runs
-    # their 2 transposes; bf16 inputs on tensor cores, f32 in 3xTF32 on them
-    peak = PEAK_BF16 if cd_name == "bf16" else PEAK_3XTF32
-    bb_ = egcl_bound(f"K3 {cd_name} B={B}", io_b, E * 8 * F * F + 2 * node_ops, peak, E, F)
-    if cd_name == "f32":
-        print(f"[phase 3] f32 B={B} layer 0: scalar K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
-        return dict(egcl_layer0_f32(el, cfg, w, packed, ptc, h, x, ea),
-                    bwd_f32=dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1]))
+    # their 2 transposes; bf16 inputs on tensor cores
+    bb_ = egcl_bound(f"K3 {cd_name} B={B}", io_b, E * 8 * F * F + 2 * node_ops, PEAK_BF16, E, F)
     ms_f = cuda_ms(lambda: fwd(h, x, ea))
     with torch.no_grad():
         pl_f = cuda_ms(lambda: el.layer_step(h, x, ea, w, **cfg), reps=5)
-    bf = egcl_bound(f"K2 {cd_name} B={B}", io_f, E * 4 * F * F + node_ops, peak, E, F)
+    bf = egcl_bound(f"K2 {cd_name} B={B}", io_f, E * 4 * F * F + node_ops, PEAK_BF16, E, F)
     # the scalar K2 in bf16, past the dispatch for this timing only; in turns
     # with the tensor-core K2 (scalar, tensor cores, tensor cores, scalar)
     scalar = lambda *a: el._forward_scalar(*a, w, packed, **cfg)
@@ -529,15 +543,7 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     print(f"[phase 3] bf16 B={B} layer 0: tensor-core K2 {ms_f:.4f} ms, in turns with the "
           f"scalar K2 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar; "
           f"plain {pl_f:.3f}); tensor-core K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
-    # the same layer on the inputs of the first EM step (prior samples at
-    # t=1), where many activations are far from 0
-    bb = wl.energy.backbone
-    _, c_in1, _, c_noise1 = coeffs(wl.noise.h(torch.ones(B, device="cuda")))
-    xp = torch.randn(B, N, 3, generator=gen, device="cuda") * wl.prior_scale
-    xp = (xp * c_in1[:, None, None]).contiguous()
-    f1 = torch.stack([c_noise1, torch.ones_like(c_noise1)], -1)[:, None, :]
-    hp = (f1.expand(B, N, 2) @ bb.w_emb + bb.b_emb).contiguous()
-    eap = ((xp[:, :, None] - xp[:, None]) ** 2).sum(-1).contiguous()
+    hp, xp, eap = first_step_inputs(wl, B, N, gen)
     ms_f1 = cuda_ms(lambda: fwd(hp, xp, eap))
     ms_fs1 = cuda_ms(lambda: scalar(hp, xp, eap))
     ms_b1 = cuda_ms(lambda: bwd(hp, xp, eap, gh, gx), reps=10)
@@ -561,8 +567,7 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
         with torch.no_grad():
             ref_f = [torch.cat(p) for p in zip(*(
                 el.layer_step(*(t[c0:c0 + 1024] for t in args[:3]), w, **cfg) for c0 in chunks))]
-        ref_b = [torch.cat(p) for p in zip(*(
-            el.layer_vjp(*(t[c0:c0 + 1024] for t in args), w, **cfg) for c0 in chunks))]
+        ref_b = plain_vjp(el, args, w, cfg)
         torch.cuda.synchronize()
         errs_f = [rel_err(a, b) for a, b in zip(got_f, ref_f)]
         errs_b = [rel_err(a, b) for a, b in zip(got_b, ref_b)]
@@ -642,17 +647,116 @@ def k2_f32_in_turns(el, h, x, ea, w, cfg, packed, ptc, label, phase):
             dict(max_abs_err=max(e[1] for e in errs_s), ms=ms_s, **common))
 
 
-def egcl_layer0_f32(el, cfg, w, packed, ptc, h, x, ea):
-    """The f32 K2 on phase 3's inputs at the main paths' chain counts (the
-    fill's 256, the DEM refill's 2,000) and at 2,048. Returns the JSON
-    fields by kernel, of the 2,000-chain launch."""
+def k3_f32_bound(h, packed, phase):
+    """The f32 K3's bound at h (B, N, F), its terms printed: h, x, edge_attr,
+    gh and gx read, dh, dx and dea written, the weights read; the forward's
+    two edge products and their two transposes, the node products and their
+    transposes, in 3xTF32; the SFU terms."""
+    B, N, F = h.shape
+    E = B * N * (N - 1)
+    return egcl_bound(f"K3 f32 B={B}", 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N)
+                      + 4 * packed.numel(), E * 8 * F * F + 2 * B * N * 10 * F * F, PEAK_3XTF32,
+                      E, F, phase=phase)
+
+
+def plain_vjp(el, args, w, cfg, chunk=1024):
+    """layer_vjp on (h, x, edge_attr, gh, gx) in chunks of chains: its edge
+    tensors are 0.4 GB a tensor at 1,024 chains."""
+    import torch
+
+    return [torch.cat(p) for p in zip(*(
+        el.layer_vjp(*(t[c0:c0 + chunk] for t in args), w, **cfg)
+        for c0 in range(0, args[0].shape[0], chunk)))]
+
+
+def k3_f32_in_turns(el, args, w, cfg, packed, ptc, label, phase):
+    """The f32 K3 at one launch on args = (h, x, edge_attr, gh, gx): the
+    3xTF32 kernel (the dispatch's pick, which must launch it alone) and the
+    scalar yardstick against layer_vjp, the 3xTF32 one launched twice for a
+    bitwise-equal result, both timed in turns (scalar, 3xTF32, 3xTF32,
+    scalar). Returns (fields of the 3xTF32 kernel, fields of the scalar one)
+    for the kernels line."""
+    import torch
+
+    tf32 = lambda: el.egnn_layer_backward(*args, w, packed=packed, packed_tc=ptc, **cfg)
+    scalar = lambda: el._backward_scalar(*args, w, packed, **cfg)
+    counts = lambda: (el.egnn_layer_backward.launches, el.egnn_layer_backward_tf32.launches)
+    before = counts()
+    got, again = tf32(), tf32()
+    if counts() != (before[0], before[1] + 2):
+        fail(f"the f32 layer VJP at {label} did not launch the 3xTF32 K3 alone")
+    got_s = scalar()
+    ref = plain_vjp(el, args, w, cfg)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    errs_s = [rel_err(a, b) for a, b in zip(got_s, ref)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, got_s, ref
+    turns, ms, ms_s = in_turns(scalar, tf32, reps=10)
+    pl = cuda_ms(lambda: el.layer_vjp(*args, w, **cfg), reps=3, warmup=1)
+    bnd = k3_f32_bound(args[0], packed, phase)
+    names = ("dh", "dx", "dea")
+    print(f"[phase {phase}] f32 K3 at {label} (B={args[0].shape[0]}): 3xTF32 kernel rel err "
+          + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(names, errs)) + ", scalar "
+          + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(names, errs_s))
+          + f" (tol {TOL_F32}); a second launch {'bitwise equal' if same else 'DIFFERENT'}; "
+          f"3xTF32 {ms:.4f} ms, scalar {ms_s:.4f} ms, in turns "
+          f"{' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, 3xTF32, 3xTF32, scalar); plain "
+          f"{pl:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    if not max(e[0] for e in errs + errs_s) <= TOL_F32:
+        fail(f"an f32 K3 disagrees with its plain version at {label}")
+    if not same:
+        fail(f"two launches of the 3xTF32 K3 at {label} differ")
+    common = dict(plain_ms=pl, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return (dict(max_abs_err=max(e[1] for e in errs), ms=ms, **common),
+            dict(max_abs_err=max(e[1] for e in errs_s), ms=ms_s, **common))
+
+
+def egcl_layer0_f32(wl, el, cfg, w, packed, ptc, h, x, ea, gh, gx):
+    """The f32 K2 and K3 on phase 3's inputs at the main paths' chain counts:
+    K2 at the fill's 256, the DEM refill's 2,000 and at 2,048; K3 at the
+    fill's 256 and at 2,048, each in turns with its scalar yardstick; then
+    the 3xTF32 K3 alone against layer_vjp on first-step inputs (t = 1) and
+    at LJ13's N = 13, 2,048 chains each. Returns the JSON fields by kernel:
+    K2 of the 2,000-chain launch, K3 of the fill's 256."""
+    import torch
+
     out = {}
     for n in (256, 2000, h.shape[0]):
         out[n] = k2_f32_in_turns(el, h[:n], x[:n], ea[:n], w, cfg, packed, ptc,
                                  f"layer 0, t = 0.5, {n} chains", 3)
     worst = max(max(r[0]["max_abs_err"], r[1]["max_abs_err"]) for r in out.values())
+    k3 = {n: k3_f32_in_turns(el, tuple(t[:n] for t in (h, x, ea, gh, gx)), w, cfg, packed, ptc,
+                             f"layer 0, t = 0.5, {n} chains", 3) for n in (256, h.shape[0])}
+    worst_k3 = max(r[0]["max_abs_err"] for r in k3.values())
+    # its own generator: the draws of the phase's other checks stay as they were
+    gen = torch.Generator("cuda").manual_seed(31)
+    B, N, F = h.shape
+    hp, xp, eap = first_step_inputs(wl, B, N, gen)
+    for name, args in (("first-step inputs (t=1)", (hp, xp, eap, gh, gx)),
+                       ("LJ13's N=13 (the first 13 particles, t=0.5)",
+                        tuple(t.contiguous() for t in (h[:, :13], x[:, :13], ea[:, :13, :13],
+                                                       gh[:, :13], gx[:, :13])))):
+        before = (el.egnn_layer_backward.launches, el.egnn_layer_backward_tf32.launches)
+        got = el.egnn_layer_backward(*args, w, packed=packed, packed_tc=ptc, **cfg)
+        if (el.egnn_layer_backward.launches, el.egnn_layer_backward_tf32.launches) != (
+                before[0], before[1] + 1):
+            fail(f"the f32 layer VJP on {name} did not launch the 3xTF32 K3 alone")
+        ref = plain_vjp(el, args, w, cfg)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        worst_k3 = max([worst_k3] + [e[1] for e in errs])
+        print(f"[phase 3] 3xTF32 K3 f32 layer 0, {name} (B={B}): rel err "
+              + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(("dh", "dx", "dea"), errs))
+              + f" (tol {TOL_F32})")
+        if not max(e[0] for e in errs) <= TOL_F32:
+            fail(f"the 3xTF32 K3 disagrees with layer_vjp on {name}")
+        del got, ref
     return {"fwd_f32": dict(out[2000][0], max_abs_err=worst),
-            "fwd_f32_scalar": dict(out[2000][1], max_abs_err=worst)}
+            "fwd_f32_scalar": dict(out[2000][1], max_abs_err=worst),
+            "bwd_f32": dict(k3[256][0], max_abs_err=worst_k3),
+            "bwd_f32_scalar": dict(k3[256][1],
+                                   max_abs_err=max(r[1]["max_abs_err"] for r in k3.values()))}
 
 
 def score_inputs(wl, x_flat, t_val):
@@ -1093,7 +1197,7 @@ def phase_wiring(wl, wl32, data, kernels):
     base = exact_cfg(num_integration_steps=n, end_resampling_step=n, time_range=t0,
                      ess_resampling_threshold=0.0, divergence_chunk_size=64)
     scalar = {"bf16": [0, 0, 0], "f32": [0, 0, 0]}  # of the scalar K2, K3 and K4 by backbone
-    tf32 = [0, 0]  # of the 3xTF32 K2 and K4, f32 backbone
+    tf32 = [0, 0, 0]  # of the 3xTF32 K2, K3 and K4, f32 backbone
     for name, load in (("bf16", wl), ("f32", wl32)):
         res = {}
         for route, kw in ROUTES.items():
@@ -1108,7 +1212,8 @@ def phase_wiring(wl, wl32, data, kernels):
             scalar[name][2] += counts["egnn_layer_tangent"]
             if name == "f32":
                 tf32[0] += counts["egnn_layer_forward_tf32"]
-                tf32[1] += counts["egnn_layer_tangent_tf32"]
+                tf32[1] += counts["egnn_layer_backward_tf32"]
+                tf32[2] += counts["egnn_layer_tangent_tf32"]
             # the K4 route: the tensor-core K4 with the bf16 backbone, the 3xTF32 with the f32
             k4, others = (("egnn_layer_tangent_tc", ("egnn_layer_tangent_tf32",))
                           if name == "bf16" else
@@ -1119,8 +1224,9 @@ def phase_wiring(wl, wl32, data, kernels):
             if (any(counts[k] for k in others + ("egnn_layer_tangent",))
                     or (route != "tangent_kernel" and counts[k4])):
                 fail(f"the {route} route ({name} backbone) launched a K4 it should not")
-            if name == "f32" and counts["egnn_layer_forward_tf32"] == 0:
-                fail(f"the {route} route (f32 backbone) did not launch the 3xTF32 K2")
+            if name == "f32" and 0 in (counts["egnn_layer_forward_tf32"],
+                                       counts["egnn_layer_backward_tf32"]):
+                fail(f"the {route} route (f32 backbone) did not launch the 3xTF32 K2 and K3")
             if counts["_contract_scalar"]:
                 fail(f"the {route} route ({name} backbone) launched the scalar K5")
         ref = res["materialized"]
@@ -1144,12 +1250,12 @@ def phase_wiring(wl, wl32, data, kernels):
                 fail(f"the {route} route's log-weights disagree with the materialized "
                      f"route's ({name})")
     print(f"[phase 8] launches of the scalar K2, K3, K4: f32 backbone's runs {scalar['f32']}, "
-          f"bf16 backbone's runs {scalar['bf16']}; of the 3xTF32 K2, K4: f32 backbone's runs "
-          f"{tf32}")
-    if scalar["f32"][1] == 0 or 0 in tf32:
-        fail("the f32 wiring runs did not launch the 3xTF32 K2 and K4 and the scalar K3")
-    if scalar["f32"][0] or scalar["f32"][2]:
-        fail("the f32 wiring runs (N = 55) launched the scalar K2 or K4")
+          f"bf16 backbone's runs {scalar['bf16']}; of the 3xTF32 K2, K3, K4: f32 backbone's "
+          f"runs {tf32}")
+    if 0 in tf32:
+        fail("the f32 wiring runs did not launch the 3xTF32 K2, K3 and K4")
+    if scalar["f32"] != [0, 0, 0]:
+        fail("the f32 wiring runs (N = 55) launched the scalar K2, K3 or K4")
     if scalar["bf16"] != [0, 0, 0]:
         fail("the bf16 wiring runs launched a scalar EGCL kernel")
     return scalar["f32"], tf32
@@ -1461,24 +1567,27 @@ def lj55_train_cfg(tmp):
     })
 
 
-def profiled_ms(run, key, n=50):
+def profiled_ms(run, key, n=50, tries=2):
     """Device time alone per launch of the kernels whose name holds ``key``
-    over ``n`` calls of ``run`` (torch.profiler); None without such a row."""
+    over ``n`` calls of ``run`` (torch.profiler); None when ``tries``
+    profiles in a row hold no such row (now and then one profile of a
+    series comes back without the kernels' rows, so a miss is taken again)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and key in e.key]
-    if not rows:
-        return None
-    return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows)
+    return None
 
 
 def k1_entry(target, x, label, launches, phase=11, n_ref=None):
@@ -1590,36 +1699,20 @@ def layer0_inputs(tr, x_flat):
 def fill_layer_entries(tr, x_flat, counts):
     """The f32 K2, K3 and K4 at the fill's launches (256 chains for the
     drift's networks; 64-chain chunks of 64 tangents for the K4 route), on
-    the EMA score net's layer 0: the 3xTF32 K2 and K4 and the scalar K3
-    against their plain versions and timed, the 3xTF32 kernels in turns with
-    their scalar yardsticks."""
+    the EMA score net's layer 0: the 3xTF32 K2, K3 and K4 against their
+    plain versions and timed in turns with their scalar yardsticks."""
     import torch
 
     from pita_torch.ops import egnn_layer as el
     from pita_torch.ops import egnn_tangent as et
 
     h, xs, ea, w, cfg, packed, ptc = layer0_inputs(tr, x_flat)
-    (B, N, F), dev = h.shape, h.device
+    (_, N, F), dev = h.shape, h.device
     gen = torch.Generator(dev).manual_seed(11)
     gh = torch.randn(h.shape, generator=gen, device=dev)
     gx = torch.randn(xs.shape, generator=gen, device=dev)
-    bwd = lambda: el.egnn_layer_backward(h, xs, ea, gh, gx, w, packed=packed, **cfg)
-    got = bwd()
-    ref = el.layer_vjp(h, xs, ea, gh, gx, w, **cfg)
-    torch.cuda.synchronize()
-    errs = [rel_err(a, b) for a, b in zip(got, ref)]
-    print(f"[phase 11] f32 scalar K3 (B={B}) on the trained EMA weights, layer 0: rel err "
-          + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(("dh", "dx", "dea"), errs))
-          + f" (tol {TOL_F32})")
-    if not max(e[0] for e in errs) <= TOL_F32:
-        fail("the f32 K3 disagrees with its plain version on the trained weights")
-    ms_b = cuda_ms(bwd, reps=10)
-    pl_b = cuda_ms(lambda: el.layer_vjp(h, xs, ea, gh, gx, w, **cfg), reps=3)
-    E = B * N * (N - 1)
-    bb_ = egcl_bound(f"K3 f32 B={B}", 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N)
-                     + 4 * packed.numel(), E * 8 * F * F + 2 * B * N * 10 * F * F, PEAK_3XTF32,
-                     E, F, phase=11)
-    print(f"[phase 11] f32 scalar K3 at the fill's launch: {ms_b:.4f} ms (plain {pl_b:.3f})")
+    k3, _ = k3_f32_in_turns(el, (h, xs, ea, gh, gx), w, cfg, packed, ptc,
+                            "the fill's launch, trained EMA weights", 11)
     k2, _ = k2_f32_in_turns(el, h, xs, ea, w, cfg, packed, ptc,
                             "the fill's launch, trained EMA weights", 11)
     Tc, Bc = 64, 64
@@ -1635,9 +1728,8 @@ def fill_layer_entries(tr, x_flat, counts):
         replaces=f"pita_tpu/ops/pallas/egnn_fwd.py:{rep}", launches=launches, **fields)
     return [
         mk("egcl_forward_tf32", "egnn_layer_f32tc.cu", 318, counts["egnn_layer_forward_tf32"], k2),
-        mk("egcl_backward", "egnn_layer.cu", 342, counts["egnn_layer_backward"],
-           dict(max_abs_err=max(e[1] for e in errs), ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0],
-                bound_by=bb_[1], library_ms=None)),
+        mk("egcl_backward_tf32", "egnn_layer_bwd_f32tc.cu", 342,
+           counts["egnn_layer_backward_tf32"], k3),
         mk("egcl_tangent_tf32", "egnn_tangent_f32tc.cu", 365, counts["egnn_layer_tangent_tf32"],
            k4),
     ]
@@ -1800,11 +1892,12 @@ def phase_training(kernels, tmp, profile=False):
           f"(K4 route, 256 chains x 100 steps + the 256-chain no-resampling pass): "
           f"{t_fill:.2f} s; launches {fill_counts}; rung-1 buffer {buf1} rows; "
           + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
-    for k in ("lj_log_prob_and_force", "egnn_layer_forward_tf32", "egnn_layer_backward",
+    for k in ("lj_log_prob_and_force", "egnn_layer_forward_tf32", "egnn_layer_backward_tf32",
               "egnn_layer_tangent_tf32"):
         if fill_counts[k] == 0:
             fail(f"the f32 fill did not launch {k}")
-    for k in ("egnn_layer_forward", "egnn_layer_tangent", "egnn_layer_forward_tc",
+    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent",
+              "egnn_layer_forward_tc",
               "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "g_operator_contract",
               "_contract_scalar", "_lj_scalar"):
         if fill_counts[k]:
@@ -1823,10 +1916,11 @@ def phase_training(kernels, tmp, profile=False):
     nets = tr._eval_wrappers()
     anneal = tr.make_annealing(float(tr.inverse_temperatures[1] / tr.inverse_temperatures[0]))
     x1 = tr._prior(1.0).sample(256, generator=tr.generator, device="cuda")
-    # (before: the K4 route with the scalar f32 K2 and K4, the rule patched
-    # off in this script for that run)
+    # (before: the K4 route with the scalar f32 K2, K3 and K4, the rule
+    # patched off in this script for that run)
     route_s = {}
-    for route, kw in (("K4, scalar f32 K2 and K4 (before)", dict(divergence_tangent_kernel=True)),
+    for route, kw in (("K4, scalar f32 K2, K3 and K4 (before)",
+                       dict(divergence_tangent_kernel=True)),
                       ("K4", dict(divergence_tangent_kernel=True)),
                       ("K5", dict(divergence_tangent_kernel=False, divergence_g_kernel=True)),
                       ("materialized", dict(divergence_tangent_kernel=False))):
@@ -2054,8 +2148,8 @@ def phase_dem(kernels, tmp, data_dir):
     if fit_counts["egnn_layer_forward_tf32"] != 3 * dem.num_integration_steps:
         fail(f"the refill launched the 3xTF32 K2 {fit_counts['egnn_layer_forward_tf32']} times, "
              f"not {3 * dem.num_integration_steps}")
-    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent",
-              "egnn_layer_tangent_tf32", "egnn_layer_forward_tc",
+    for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_backward_tf32",
+              "egnn_layer_tangent", "egnn_layer_tangent_tf32", "egnn_layer_forward_tc",
               "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "g_operator_contract",
               "_contract_scalar", "_lj_scalar"):
         if fit_counts[k]:
@@ -2275,13 +2369,14 @@ def phase_clis(kernels, tmp, ckpt, data_dir):
           f"test set at T=1.5; launches {c}")
     if not metrics or not all(math.isfinite(v) for v in metrics.values()):
         fail("eval_cli's test metrics are missing or not finite")
-    for k in ("egnn_layer_forward_tf32", "egnn_layer_backward", "egnn_layer_tangent_tf32"):
+    for k in ("egnn_layer_forward_tf32", "egnn_layer_backward_tf32", "egnn_layer_tangent_tf32"):
         if not c[k]:
             fail(f"eval_cli's test did not launch {k}")
-    if any(c[k] for k in ("egnn_layer_forward", "egnn_layer_tangent", "egnn_layer_forward_tc",
-                          "egnn_layer_backward_tc", "egnn_layer_tangent_tc", "_lj_scalar")):
-        fail("eval_cli's f32 test launched a scalar K2 or K4, a bf16 tensor-core kernel or the "
-             "first K1")
+    if any(c[k] for k in ("egnn_layer_forward", "egnn_layer_backward", "egnn_layer_tangent",
+                          "egnn_layer_forward_tc", "egnn_layer_backward_tc",
+                          "egnn_layer_tangent_tc", "_lj_scalar")):
+        fail("eval_cli's f32 test launched a scalar K2, K3 or K4, a bf16 tensor-core kernel or "
+             "the first K1")
 
     lj13 = ["experiment=lj13", "debug=short", "device=cuda", "test=false",
             f"energy.data_dir={os.path.join(tmp, 'data13')}"]
@@ -3244,8 +3339,8 @@ def phase_sharded_sampling(kernels, wl, group):
             fail(f"phase 15: the sharded {label} run did not launch K2 and K3 (tensor cores)")
         if any(ln[k] for k in ("egnn_layer_forward", "egnn_layer_backward", "_contract_scalar",
                                "_lj_scalar", "egnn_layer_tangent", "egnn_layer_tangent_tc",
-                               "egnn_layer_forward_tf32", "egnn_layer_tangent_tf32",
-                               "g_operator_contract")):
+                               "egnn_layer_forward_tf32", "egnn_layer_backward_tf32",
+                               "egnn_layer_tangent_tf32", "g_operator_contract")):
             fail(f"phase 15: the sharded {label} run launched a scalar, yardstick or "
                  f"exact-divergence kernel")
         if c.post_mcmc_steps and not ln["lj_log_prob_and_force"]:
@@ -3540,8 +3635,8 @@ def main():
     from pita_torch.io.bench_asset import load_lj55_bench
     from pita_torch.ops import _build
     from pita_torch.ops.egnn_layer import (egnn_layer_backward, egnn_layer_backward_tc,
-                                           egnn_layer_forward, egnn_layer_forward_tc,
-                                           egnn_layer_forward_tf32)
+                                           egnn_layer_backward_tf32, egnn_layer_forward,
+                                           egnn_layer_forward_tc, egnn_layer_forward_tf32)
     from pita_torch.ops.egnn_tangent import (egnn_layer_tangent, egnn_layer_tangent_tc,
                                              egnn_layer_tangent_tf32)
     from pita_torch.ops.g_op import _contract_scalar, g_operator_contract
@@ -3558,7 +3653,8 @@ def main():
 
     kernels = (lj_log_prob_and_force, egnn_layer_forward, egnn_layer_forward_tc,
                egnn_layer_forward_tf32, egnn_layer_backward, egnn_layer_backward_tc,
-               egnn_layer_tangent, egnn_layer_tangent_tc, egnn_layer_tangent_tf32,
+               egnn_layer_backward_tf32, egnn_layer_tangent, egnn_layer_tangent_tc,
+               egnn_layer_tangent_tf32,
                g_operator_contract, _contract_scalar, _lj_scalar)
     if "--training-only" in sys.argv[1:]:  # quick check of the training path
         with tempfile.TemporaryDirectory() as tmp:
@@ -3627,8 +3723,9 @@ def main():
           f"K3 {main_counts['egnn_layer_backward']}")
     if main_counts["egnn_layer_forward_tc"] != want_k2 or main_counts["egnn_layer_backward_tc"] == 0:
         fail("the main path did not launch the tensor-core EGCL kernels (K2 and K3)")
-    if main_counts["egnn_layer_forward"] or main_counts["egnn_layer_backward"]:
-        fail("the main path launched a scalar EGCL kernel")
+    if any(main_counts[k] for k in ("egnn_layer_forward", "egnn_layer_backward",
+                                    "egnn_layer_forward_tf32", "egnn_layer_backward_tf32")):
+        fail("the main path launched a scalar or an f32 EGCL kernel")
     if profile:  # where the device time of the main path goes
         profile_main_path(wl, x1, cfg, "hutch_ess_k10")
 
@@ -3647,9 +3744,9 @@ def main():
             fail(f"energy W2 against ground truth {w2_gt:.3f} > 2 sigma_GT {2 * spread:.3f}")
 
     # phase 8: every route of the exact divergence gives the same weights
-    (k2_scalar_launches, k3_f32_launches, k4_scalar_launches), (k2_tf32_launches,
-                                                                k4_tf32_launches) = phase_wiring(
-        wl, wl32, data, kernels)
+    (k2_scalar_launches, k3_scalar_launches, k4_scalar_launches), (
+        k2_tf32_launches, k3_tf32_launches, k4_tf32_launches) = phase_wiring(wl, wl32, data,
+                                                                            kernels)
     phase_routes_random_weights(wl, data)
 
     # phase 9: the second main path, timed, once per route
@@ -3730,10 +3827,16 @@ def main():
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:342",
              launches=main_counts["egnn_layer_backward_tc"],
              max_abs_err=max(eg["bf16"][1], eg["bwd_extra_err"]), library_ms=None, **eg["bwd"]),
-        # the f32 K3: launches from the f32 backbone's runs of phase 8
+        # the f32 K3 at the fill's 256 chains: launches from the f32
+        # backbone's runs of phase 8; the scalar K3, timed as the yardstick
+        # (phases 8, 11 and 12 require that no f32 path at N = 55 launches it)
+        dict(name="egcl_backward_tf32", route="cuda", source=src + "egnn_layer_bwd_f32tc.cu",
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:342", launches=k3_tf32_launches,
+             **dict(eg["bwd_f32"], max_abs_err=max(eg["f32"][1],
+                                                   eg["bwd_f32"]["max_abs_err"]))),
         dict(name="egcl_backward", route="cuda", source=src + "egnn_layer.cu",
-             replaces="pita_tpu/ops/pallas/egnn_fwd.py:342", launches=k3_f32_launches,
-             max_abs_err=eg["f32"][1], library_ms=None, **eg["bwd_f32"]),
+             replaces="pita_tpu/ops/pallas/egnn_fwd.py:342", launches=k3_scalar_launches,
+             **eg["bwd_f32_scalar"]),
         dict(name="egcl_tangent_tc", route="cuda", source=src + "egnn_tangent_tc.cu",
              replaces="pita_tpu/ops/pallas/egnn_fwd.py:365", launches=k4_launches, **k4),
         # the f32 K4 at 256 chains x 64 tangents: launches from the f32

@@ -3,7 +3,8 @@
 // _layer_step. Included by egnn_layer.cu (K2 forward, K3 VJP), egnn_tangent.cu
 // (K4 tangent) and the tensor-core kernels egnn_layer_tc.cu and
 // egnn_tangent_tc.cu, which also share TcOff, their bf16 weight layout, and
-// the f32 tensor-core kernels egnn_layer_f32tc.cu and egnn_tangent_f32tc.cu.
+// the f32 tensor-core kernels egnn_layer_f32tc.cu, egnn_layer_bwd_f32tc.cu and
+// egnn_tangent_f32tc.cu.
 
 #pragma once
 

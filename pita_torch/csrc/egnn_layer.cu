@@ -25,8 +25,11 @@
 // the backward 8x slower); the vector a later stage needs waits in the
 // slot. Row sums over j (aggregation, coordinate update, src cotangent) are
 // warp shuffles; a lane without an edge runs the finite diagonal and
-// contributes 0. This first version uses scalar f32 FMAs; tensor cores
-// (mma/wgmma) are later work.
+// contributes 0. These are the first, scalar versions (f32 FMAs). The
+// tensor-core kernels took over since: in bf16 compute egnn_layer_tc.cu (K2
+// and K3); in f32 egnn_layer_f32tc.cu (K2) and egnn_layer_bwd_f32tc.cu (K3),
+// 3xTF32, where F is 16 or 32 and N <= 64. Both kernels here stay as the
+// yardsticks those are timed against and for f32 at N > 64.
 //
 // K3 is the VJP with respect to (h, x, edge_attr), derived by hand through
 // the chain above; weight cotangents are not computed (inference only). The

@@ -6,10 +6,10 @@
 //
 // K3 replaces the Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:169
 // _layer_bwd_kernel (called through _layer_bwd_call, egnn_fwd.py:335) for
-// compute dtype bf16; the scalar egcl_bwd_kernel of egnn_layer.cu stays the
-// kernel for f32. The function is that of egnn_layer.cu's K3: matmul inputs
-// rounded to bf16 in value, f32 accumulation, f32 elementwise math, and in
-// the VJP the rounding counts as the identity, so cotangents stay f32.
+// compute dtype bf16; egnn_layer_bwd_f32tc.cu is the f32 one (3xTF32). The
+// function is that of egnn_layer.cu's K3: matmul inputs rounded to bf16 in
+// value, f32 accumulation, f32 elementwise math, and in the VJP the rounding
+// counts as the identity, so cotangents stay f32.
 //
 // What bounds it on the H100: per chain the edge chain runs five F x F
 // products per edge (the aggregation pass one, the edge pass two forward and
@@ -73,35 +73,6 @@ struct Smem {
   // rows of F + 8: dst, gdst (a warp reads 8 rows at once, on distinct banks)
   float *src, *dst, *gdst, *agg, *gagg, *x, *gx, *dxr;
 };
-
-// Per-edge geometry of the lane's two rows (senders j0 + g + 8r) for
-// receiver i; a row without an edge (j >= N or j == i) runs the diagonal.
-struct Geo {
-  float d[2][3], rad[2], eij[2], vm[2];
-  int jj[2], j[2];
-};
-
-__device__ __forceinline__ void edge_geo(Geo& e, const Smem& s, const float* eab, int i, int j0,
-                                         int N, int lane) {
-  const int g = lane >> 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = j0 + g + 8 * r;
-    const bool valid = j < N && j != i;
-    const int jj = j < N ? j : i;
-    e.j[r] = j;
-    e.jj[r] = jj;
-    e.vm[r] = valid ? 1.f : 0.f;
-    float rad = 0.f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      e.d[r][k] = s.x[3 * i + k] - s.x[3 * jj + k];
-      rad += e.d[r][k] * e.d[r][k];
-    }
-    e.rad[r] = rad;
-    e.eij[r] = eab[i * N + jj];
-  }
-}
 
 // The front of the edge chain for receiver i and the lane's edges: z1 and
 // its sigmoid derivative (ds1, if wanted), the products to z2, m_pre =
@@ -249,7 +220,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
     if (warp < T) {
       const int i = (step + warp * off) % N;
       Geo e;
-      edge_geo(e, s, eab, i, n0, N, lane);
+      edge_geo(e, s.x, eab, i, n0, N, lane);
       float mp[2][V], att[2];
       edge_front<F, false>(s, e, i, c, lane, ds_unused, mp, ds_unused, att);
       float p[V];
@@ -316,7 +287,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
     if (warp < T) {
       const int i = (step + warp * off) % N;
       Geo e;
-      edge_geo(e, s, eab, i, n0, N, lane);
+      edge_geo(e, s.x, eab, i, n0, N, lane);
       float ds1[2][V], mp[2][V], ds2[2][V], att[2];
       edge_front<F, true>(s, e, i, c, lane, ds1, mp, ds2, att);
       // cz = R(m_pre * att) W_c1 + b_c1, its sigmoid kept as silu'(cz)
@@ -493,9 +464,9 @@ int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* 
 // K2 on tensor cores: one EGCL layer forward in bf16 compute. Replaces the
 // Pallas TPU kernel pita_tpu/ops/pallas/egnn_fwd.py:153 _layer_fwd_kernel
 // (called through _layer_fwd_call, egnn_fwd.py:311) for compute dtype bf16;
-// the scalar egcl_fwd_kernel of egnn_layer.cu stays the kernel for f32. The
-// function is that of the scalar K2: matmul inputs rounded to bf16 in value,
-// f32 accumulation, f32 elementwise math.
+// egnn_layer_f32tc.cu is the f32 one (3xTF32). The function is that of the
+// scalar K2: matmul inputs rounded to bf16 in value, f32 accumulation, f32
+// elementwise math.
 //
 // What bounds it on the H100: each edge needs 3F+2 sigmoids (sigma(z1),
 // sigma(z2), sigma(cz), the attention gate, and the tanh), each at least one

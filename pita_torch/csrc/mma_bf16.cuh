@@ -1,6 +1,7 @@
 // bf16 tensor-core helpers shared by the kernels that multiply on mma.sync:
 // egnn_layer_tc.cu (K2, K3), egnn_tangent_tc.cu (K4) and g_op.cu (K5); the
-// tile helpers below mma16816 are those of the EGCL kernels.
+// tile helpers below mma16816 are those of the EGCL kernels (the 3xTF32
+// ones of mma_tf32.cuh too, whose accumulator layout is the same).
 
 #pragma once
 
@@ -152,6 +153,37 @@ __device__ __forceinline__ float col_sum(float (&p)[V], int lane, int& vi) {
   }
   vi = base;
   return p[0];
+}
+
+// Per-edge geometry of a sender tile's rows for receiver i, as the VJP
+// kernels (K3) walk it: the lane's two rows are senders j0 + g + 8r; a row
+// without an edge (j >= N or j == i) runs the diagonal. sx: the chain's
+// coordinates (3 a node), eab: its edge_attr (N x N).
+struct Geo {
+  float d[2][3], rad[2], eij[2], vm[2];
+  int jj[2], j[2];
+};
+
+__device__ __forceinline__ void edge_geo(Geo& e, const float* sx, const float* eab, int i, int j0,
+                                         int N, int lane) {
+  const int g = lane >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = j0 + g + 8 * r;
+    const bool valid = j < N && j != i;
+    const int jj = j < N ? j : i;
+    e.j[r] = j;
+    e.jj[r] = jj;
+    e.vm[r] = valid ? 1.f : 0.f;
+    float rad = 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      e.d[r][k] = sx[3 * i + k] - sx[3 * jj + k];
+      rad += e.d[r][k] * e.d[r][k];
+    }
+    e.rad[r] = rad;
+    e.eij[r] = eab[i * N + jj];
+  }
 }
 
 }  // namespace

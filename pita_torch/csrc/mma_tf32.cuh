@@ -1,8 +1,8 @@
 // f32 products on tensor cores in 3xTF32, shared by the f32 EGCL kernels that
-// multiply on mma.sync: egnn_tangent_f32tc.cu (K4) and egnn_layer_f32tc.cu
-// (K2). They take the accumulator-layout tile helpers of mma_bf16.cuh
-// (col_of, load_tile, store_tile, quad_sum, col_sum), whose layout the
-// m16n8k8 TF32 accumulator shares.
+// multiply on mma.sync: egnn_tangent_f32tc.cu (K4), egnn_layer_f32tc.cu (K2)
+// and egnn_layer_bwd_f32tc.cu (K3). They take the accumulator-layout tile
+// helpers of mma_bf16.cuh (col_of, load_tile, store_tile, quad_sum,
+// col_sum), whose layout the m16n8k8 TF32 accumulator shares.
 //
 // An f32 value a is split into hi = tf32(a), a rounded to TF32's 10 mantissa
 // bits, and lo = a - hi, exact in f32. A product a b is then taken as
@@ -33,9 +33,11 @@ namespace {
 // for each (n-tile nt, k-step ks, lane) one float4 {hi M[k][n], hi M[k+1][n],
 // lo M[k][n], lo M[k+1][n]}, k = 8 ks + 2 t, n = 8 nt + g, at float4 index
 // (nt K/8 + ks) 32 + lane; 2 K NO floats a matrix. Mirrored by
-// pita_torch/ops/egnn_layer.py:pack_weights_tf32.
+// pita_torch/ops/egnn_layer.py:pack_weights_tf32. K2 and K4 read the first
+// six; K3 also the transposes after them (appended, so that the offsets of
+// the first six stay where they were).
 struct TfOff {
-  int e2, c1, c1t, sd, n1, n2, total;
+  int e2, c1, c1t, sd, n1, n2, e2t, n2t, n1t, sdt, total;
 };
 
 __host__ __device__ inline TfOff tfoff(int F) {
@@ -47,6 +49,10 @@ __host__ __device__ inline TfOff tfoff(int F) {
   o.sd = p;  p += 4 * F * F;  // M = [W_src | W_dst]; W_dst's n-tiles start at sd + 2 F^2
   o.n1 = p;  p += 4 * F * F;  // M = W_n1 (2F x F)
   o.n2 = p;  p += 2 * F * F;  // M = W_n2
+  o.e2t = p; p += 2 * F * F;  // M = W_e2^T (K3's edge pass)
+  o.n2t = p; p += 2 * F * F;  // M = W_n2^T (K3's node MLP backward)
+  o.n1t = p; p += 4 * F * F;  // M = W_n1^T (F x 2F)
+  o.sdt = p; p += 4 * F * F;  // M = [W_src^T ; W_dst^T] (2F x F)
   o.total = p;
   return o;
 }

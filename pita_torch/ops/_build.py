@@ -24,8 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("lj", "egnn_layer", "egnn_layer_tc", "egnn_layer_f32tc", "egnn_tangent",
-           "egnn_tangent_tc", "egnn_tangent_f32tc", "g_op")
+SOURCES = ("lj", "egnn_layer", "egnn_layer_tc", "egnn_layer_f32tc", "egnn_layer_bwd_f32tc",
+           "egnn_tangent", "egnn_tangent_tc", "egnn_tangent_f32tc", "g_op")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

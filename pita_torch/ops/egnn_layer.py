@@ -3,8 +3,9 @@
 Counterpart of ``pita_tpu/ops/pallas/egnn_fwd.py``: ``_layer_step``
 (:85-136) is ``layer_step`` here; ``_layer_fwd_kernel`` (:153, called at
 :318) and ``_layer_bwd_kernel`` (:169, called at :342) are the kernels of
-``pita_torch/csrc/egnn_layer.cu`` (its header says what bounds them on the
-H100 and how their design answers that). ``EGCLFunction`` takes the place of
+``pita_torch/csrc/egnn_layer.cu`` and of the tensor-core sources named below
+(each header says what bounds its kernel on the H100 and how its design
+answers that). ``EGCLFunction`` takes the place of
 the custom VJP of ``_get_layer_core`` (:425-452).
 
 Layout: h (B, N, F), x (B, N, 3), edge_attr (B, N, N), all float32. The TPU
@@ -23,7 +24,9 @@ the plain version. The compute dtype and the shape choose the kernel:
   (``egnn_layer_forward_tf32``) where ``tf32_takes(N, F)``, F in (16, 32) and
   N <= 64 (the lj13 and lj55 presets), else the scalar ``egcl_fwd_kernel`` of
   ``csrc/egnn_layer.cu`` (``_forward_scalar``);
-- f32 K3: the scalar ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu``.
+- f32 K3: the 3xTF32 tensor-core kernel of ``csrc/egnn_layer_bwd_f32tc.cu``
+  (``egnn_layer_backward_tf32``) where ``tf32_takes(N, F)``, else the scalar
+  ``egcl_bwd_kernel`` of ``csrc/egnn_layer.cu`` (``_backward_scalar``).
 """
 
 import ctypes
@@ -195,23 +198,27 @@ def _frag_tf32(m):
 
 def pack_weights_tf32(w) -> torch.Tensor:
     """The f32 matrices of the 3xTF32 kernels (``egnn_layer_forward_tf32``,
-    ``egnn_tangent.egnn_layer_tangent_tf32``) in the layout of
-    ``csrc/mma_tf32.cuh:tfoff``: W_e2, W_c1, W_c1^T, [W_src | W_dst], W_n1,
-    W_n2, each split into TF32 hi + lo and laid out by ``_frag_tf32``."""
+    ``egnn_layer_backward_tf32``, ``egnn_tangent.egnn_layer_tangent_tf32``) in
+    the layout of ``csrc/mma_tf32.cuh:tfoff``: W_e2, W_c1, W_c1^T, [W_src |
+    W_dst], W_n1, W_n2, then the VJP's W_e2^T, W_n2^T, W_n1^T and [W_src^T ;
+    W_dst^T], each split into TF32 hi + lo and laid out by ``_frag_tf32``."""
     e2, c1, ws, wd, n1, n2 = (w[f].detach().float()
                               for f in ("w_e2", "w_c1", "w_src", "w_dst", "w_n1", "w_n2"))
-    mats = (e2, c1, c1.T, torch.cat([ws, wd], 1), n1, n2)
+    mats = (e2, c1, c1.T, torch.cat([ws, wd], 1), n1, n2,
+            e2.T, n2.T, n1.T, torch.cat([ws.T, wd.T], 0))
     return torch.cat([_frag_tf32(m) for m in mats]).contiguous()
 
 
-# the largest N of the 3xTF32 kernels, mirrored from csrc/egnn_layer_f32tc.cu
-# and csrc/egnn_tangent_f32tc.cu: four 16-node tiles
+# the largest N of the 3xTF32 kernels, mirrored from csrc/egnn_layer_f32tc.cu,
+# csrc/egnn_layer_bwd_f32tc.cu and csrc/egnn_tangent_f32tc.cu: four 16-node
+# tiles
 TF32_MAX_N = 64
 
 
 def tf32_takes(N: int, F: int) -> bool:
-    """The rule that sends an f32 K2 or K4 launch to its 3xTF32 tensor-core
-    kernel: F in (16, 32) and N <= 64; a larger N goes to the scalar kernel."""
+    """The rule that sends an f32 K2, K3 or K4 launch to its 3xTF32
+    tensor-core kernel: F in (16, 32) and N <= 64; a larger N goes to the
+    scalar kernel."""
     return F in (16, 32) and N <= TF32_MAX_N
 
 
@@ -262,6 +269,18 @@ def _lib_tf32():
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_forward_tf32.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_bwd_tf32():
+    lib = _build.load("egnn_layer_bwd_f32tc")
+    lib.pita_egcl_bwd_tf32_max_n.argtypes = []
+    lib.pita_egcl_bwd_tf32_max_n.restype = ctypes.c_int
+    lib.pita_egcl_backward_tf32.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.pita_egcl_backward_tf32.restype = ctypes.c_int
     return lib
 
 
@@ -357,13 +376,29 @@ def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None,
     """VJP of one EGCL layer with respect to (h, x, edge_attr) (K3);
     returns (dh, dx, dea).
 
-    On CUDA the compute dtype picks the kernel: bf16 runs the tensor-core
-    kernel (``egnn_layer_backward_tc``, ``packed_tc`` from ``pack_weights_tc``),
-    f32 the scalar kernel, whose launches this function counts.
+    On CUDA the compute dtype and the shape pick the kernel: bf16 runs the
+    tensor-core kernel (``egnn_layer_backward_tc``, ``packed_tc`` from
+    ``pack_weights_tc``); f32 the 3xTF32 tensor-core kernel
+    (``egnn_layer_backward_tf32``, ``packed_tc`` from ``pack_weights_tf32``)
+    where ``tf32_takes(N, F)`` (F in (16, 32), N <= 64), else the scalar
+    kernel, whose launches this function counts.
     """
-    if cfg.get("cd", torch.float32) == torch.bfloat16:
+    cd = cfg.get("cd", torch.float32)
+    if cd == torch.bfloat16:
         return egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=packed,
                                       packed_tc=packed_tc, **cfg)
+    if cd == torch.float32 and tf32_takes(h.shape[-2], h.shape[-1]):
+        return egnn_layer_backward_tf32(h, x, edge_attr, gh, gx, w, packed=packed,
+                                        packed_tc=packed_tc, **cfg)
+    return _backward_scalar(h, x, edge_attr, gh, gx, w, packed, **cfg)
+
+
+def _backward_scalar(h, x, edge_attr, gh, gx, w, packed=None, **cfg):
+    """The scalar K3 (``egcl_bwd_kernel``) in either compute dtype, counted
+    on ``egnn_layer_backward.launches``: ``egnn_layer_backward``'s f32 route
+    for shapes ``tf32_takes`` refuses. The f32 shapes it takes and bf16 reach
+    it only when called directly, to time it against the tensor-core
+    kernels."""
     _check_inputs(h, x, edge_attr, gh, gx)
     if h.device.type == "cpu":
         return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
@@ -454,6 +489,29 @@ def egnn_layer_forward_tf32(h, x, edge_attr, w, packed=None, packed_tc=None, **c
     return h_out, x_out
 
 
+def egnn_layer_backward_tf32(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
+    """K3 in f32 on tensor cores, its products in 3xTF32
+    (``csrc/egnn_layer_bwd_f32tc.cu``); returns (dh, dx, dea). Takes F in
+    (16, 32) and N up to 64; raises on anything else, and on a compute dtype
+    other than f32. On CPU tensors it runs the plain version, at any shape."""
+    _check_inputs(h, x, edge_attr, gh, gx)
+    if h.device.type == "cpu":
+        return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
+    packed, packed_tc, args = _tf32_launch_args(h, w, packed, packed_tc, cfg, "VJP")
+    h, x, edge_attr, gh, gx = (t.contiguous() for t in (h, x, edge_attr, gh, gx))
+    dh, dx, dea = torch.empty_like(h), torch.empty_like(x), torch.empty_like(edge_attr)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = _lib_bwd_tf32().pita_egcl_backward_tf32(
+            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), gh.data_ptr(),
+            gx.data_ptr(), packed.data_ptr(), packed_tc.data_ptr(), dh.data_ptr(),
+            dx.data_ptr(), dea.data_ptr(), *args, stream,
+        )
+    _build.check(err, "egnn_layer_backward_tf32")
+    egnn_layer_backward_tf32.launches += 1
+    return dh, dx, dea
+
+
 def _check_bf16(cfg, what):
     if cfg.get("cd", torch.float32) != torch.bfloat16:
         raise ValueError(f"the tensor-core EGCL {what} computes in bf16 only")
@@ -510,6 +568,7 @@ egnn_layer_forward_tc.launches = 0
 egnn_layer_forward_tf32.launches = 0
 egnn_layer_backward.launches = 0
 egnn_layer_backward_tc.launches = 0
+egnn_layer_backward_tf32.launches = 0
 
 
 class EGCLFunction(torch.autograd.Function):
@@ -517,8 +576,9 @@ class EGCLFunction(torch.autograd.Function):
 
     The forward runs K2 and saves only its inputs; the backward runs K3,
     which rebuilds the edge tensors on chip; in bf16 both run their
-    tensor-core kernels, in f32 the forward runs the 3xTF32 one. Weights get
-    no gradient (inference only): a weight that requires grad raises.
+    tensor-core kernels, in f32 their 3xTF32 ones where ``tf32_takes``.
+    Weights get no gradient (inference only): a weight that requires grad
+    raises.
     """
 
     @staticmethod
@@ -535,10 +595,9 @@ class EGCLFunction(torch.autograd.Function):
     def backward(ctx, gh, gx):
         h, x, edge_attr = ctx.saved_tensors
         layer = ctx.layer
-        tc = layer.cfg["cd"] == torch.bfloat16
         dh, dx, dea = egnn_layer_backward(
             h, x, edge_attr, gh.contiguous(), gx.contiguous(), layer.weights(),
-            packed=layer.packed(h.device),
-            packed_tc=layer.packed(h.device, tc=True) if tc else None, **layer.cfg,
+            packed=layer.packed(h.device), packed_tc=layer.packed(h.device, tc=True),
+            **layer.cfg,
         )
         return dh, dx, dea, None

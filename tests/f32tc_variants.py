@@ -1,5 +1,5 @@
-"""Variants of the f32 tensor-core kernels (3xTF32 K2 and K4) timed in turns
-on one card, against the sources as committed (variant A).
+"""Variants of the f32 tensor-core kernels (3xTF32 K2, K3 and K4) timed in
+turns on one card, against the sources as committed (variant A).
 
     python tests/f32tc_variants.py
 
@@ -8,10 +8,11 @@ is the committed csrc/ with a text edit, built by nvcc into a temporary
 directory and loaded in place of the wrapper's library: B splits each
 3xTF32 product's accumulator in two (the cross terms, hi hi); C does that,
 runs K2 at 3 blocks an SM (168 registers) and unrolls K4's tangent loop by
-two; D runs K2 at 3 blocks an SM. Prints each variant's registers and
-spills, its error against the plain versions and its times (A B C D D C B
-A): K2 at 2,000 chains, K4 at 64 and 256 chains x 64 tangents, N = 55, F =
-32, the bench's layer 1.
+two; D runs K2 at 3 blocks an SM and K3 at 2 (214 registers, no spill; the
+committed K3 runs at 3). Prints each variant's
+registers and spills, its error against the plain versions and its times
+(A B C D D C B A): K2 at 2,000 chains, K3 at 256 and 2,000 chains, K4 at 64
+and 256 chains x 64 tangents, N = 55, F = 32, the bench's layer 1.
 """
 import ctypes
 import os
@@ -59,10 +60,11 @@ SPLIT_NEW = """    float d[4] = {acc[0][2 * nt], acc[0][2 * nt + 1], acc[1][2 * 
     acc[0][2 * nt + 1] = d[1] + e[1];
     acc[1][2 * nt] = d[2] + e[2];
     acc[1][2 * nt + 1] = d[3] + e[3];"""
-# name: (split accumulators, K2's blocks an SM, K4's tangent loop unrolled by 2)
-VARIANTS = {"A": (False, 4, False), "B": (True, 4, False), "C": (True, 3, True),
-            "D": (False, 3, False)}
-SOURCES = ("egnn_layer_f32tc", "egnn_tangent_f32tc")
+# name: (split accumulators, K2's blocks an SM, K4's tangent loop unrolled by 2,
+# K3's blocks an SM)
+VARIANTS = {"A": (False, 4, False, 3), "B": (True, 4, False, 3), "C": (True, 3, True, 3),
+            "D": (False, 3, False, 2)}
+SOURCES = ("egnn_layer_f32tc", "egnn_layer_bwd_f32tc", "egnn_tangent_f32tc")
 TANGENT_LOOP = "      for (int u = 0; u < nt; ++u) {\n        const float4 dxi"
 
 
@@ -77,13 +79,15 @@ def build_variants(root):
     """Each variant's two libraries, built by nvcc in parallel, with ctypes
     signatures as the wrappers set them; prints registers and spills."""
     nvcc, jobs = _build.nvcc_path(), []
-    for v, (split, blocks, unroll) in VARIANTS.items():
+    for v, (split, blocks, unroll, k3_blocks) in VARIANTS.items():
         d = os.path.join(root, v)
         shutil.copytree(_build.CSRC, d)
         if split:
             edit(os.path.join(d, "mma_tf32.cuh"), SPLIT_OLD, SPLIT_NEW)
         edit(os.path.join(d, "egnn_layer_f32tc.cu"), "constexpr int kF32MinBlocks = 4;",
              f"constexpr int kF32MinBlocks = {blocks};")
+        edit(os.path.join(d, "egnn_layer_bwd_f32tc.cu"), "constexpr int kB32MinBlocks = 3;",
+             f"constexpr int kB32MinBlocks = {k3_blocks};")
         if unroll:
             edit(os.path.join(d, "egnn_tangent_f32tc.cu"), TANGENT_LOOP,
                  "#pragma unroll 2\n" + TANGENT_LOOP)
@@ -107,6 +111,10 @@ def build_variants(root):
             lib.pita_egcl_forward_tf32.argtypes = (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
             lib.pita_egcl_forward_tf32.restype = ctypes.c_int
+        elif name == "egnn_layer_bwd_f32tc":
+            lib.pita_egcl_backward_tf32.argtypes = (
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+            lib.pita_egcl_backward_tf32.restype = ctypes.c_int
         else:
             lib.pita_egcl_tangent_tf32.argtypes = (
                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
@@ -138,6 +146,7 @@ def main():
 
         def use(v):  # the wrappers' libraries, swapped for the variant's
             el._lib_tf32 = lambda: libs[v, "egnn_layer_f32tc"]
+            el._lib_bwd_tf32 = lambda: libs[v, "egnn_layer_bwd_f32tc"]
             et._lib_tf32 = lambda: libs[v, "egnn_tangent_f32tc"]
 
         dev = torch.device("cuda")
@@ -155,6 +164,8 @@ def main():
             ref2 = [torch.cat(p) for p in zip(*(
                 el.layer_step(h[c:c + 500], x[c:c + 500], ea[c:c + 500], w, **cfg)
                 for c in range(0, B, 500)))]
+        gh, gx = torch.randn_like(h), torch.randn_like(x)
+        ref3 = el.layer_vjp(h[:256], x[:256], ea[:256], gh[:256], gx[:256], w, **cfg)
         basis = torch.eye(3 * N, device=dev)[:Tc].reshape(Tc, N, 3).contiguous()
 
         def tangent_args(n):
@@ -166,18 +177,24 @@ def main():
         with torch.no_grad():
             ref4 = et.layer_tangent(*t64, w, **cfg)
         k2 = lambda: el.egnn_layer_forward_tf32(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
+        k3 = lambda n: lambda: el.egnn_layer_backward_tf32(h[:n], x[:n], ea[:n], gh[:n], gx[:n],
+                                                           w, packed=packed, packed_tc=ptc,
+                                                           **cfg)
         k4 = lambda a: lambda: et.egnn_layer_tangent_tf32(*a, w, packed=packed, packed_tc=ptc,
                                                           **cfg)
         for v in VARIANTS:
             use(v)
-            got2, got4 = k2(), k4(t64)()
+            got2, got3, got4 = k2(), k3(256)(), k4(t64)()
             torch.cuda.synchronize()
             print(f"variant {v} {VARIANTS[v]}: K2 rel err {rel_err(got2, ref2):.2e}, "
-                  f"K4 rel err {rel_err(got4, ref4):.2e}")
-        times = {v: {"k2": [], "k4_64": [], "k4_256": []} for v in VARIANTS}
+                  f"K3 rel err {rel_err(got3, ref3):.2e}, K4 rel err {rel_err(got4, ref4):.2e}")
+        times = {v: {"k2": [], "k3_256": [], "k3_2000": [], "k4_64": [], "k4_256": []}
+                 for v in VARIANTS}
         for v in list(VARIANTS) + list(VARIANTS)[::-1]:
             use(v)
             times[v]["k2"].append(cuda_ms(k2, 20))
+            times[v]["k3_256"].append(cuda_ms(k3(256), 20))
+            times[v]["k3_2000"].append(cuda_ms(k3(B), 10))
             times[v]["k4_64"].append(cuda_ms(k4(t64), 10))
             times[v]["k4_256"].append(cuda_ms(k4(t256), 5))
         for v, row in times.items():

@@ -185,18 +185,19 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
     h = torch.randn(B, N, F, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
-    # bf16 runs the tensor-core K2 and K3, f32 the 3xTF32 K2 and the scalar K3
+    # bf16 runs the tensor-core K2 and K3, f32 the 3xTF32 K2 and K3; the
+    # scalar ones never at these shapes
     tc = cd == torch.bfloat16
     for attention, tanh in ((True, True), (False, False)):
         cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=cd)
         counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches,
                           el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches,
-                          el.egnn_layer_backward_tc.launches)
+                          el.egnn_layer_backward_tc.launches, el.egnn_layer_backward_tf32.launches)
         before = counts()
         got = (*el.egnn_layer_forward(h, x, ea, w, **cfg),
                *el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg))
         assert counts() == (before[0], before[1] + tc, before[2] + (not tc),
-                            before[3] + (not tc), before[4] + tc)
+                            before[3], before[4] + tc, before[5] + (not tc))
         with torch.no_grad():
             ref = (*el.layer_step(h, x, ea, w, **cfg),
                    *el.layer_vjp(h, x, ea, gh, gx, w, **cfg))
@@ -265,6 +266,102 @@ def test_egcl_tf32_forward_matches_plain(cuda, F, N, B):
         for a, a2, b in zip(got, again, ref):
             assert torch.equal(a, a2)
             assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+
+
+def _plain_vjp(h, x, ea, gh, gx, w, cfg, chunk=512):
+    """layer_vjp in chunks of chains: its edge tensors are 0.4 GB a tensor
+    at 1,024 chains."""
+    return [torch.cat(p) for p in zip(*(
+        el.layer_vjp(h[s:s + chunk], x[s:s + chunk], ea[s:s + chunk], gh[s:s + chunk],
+                     gx[s:s + chunk], w, **cfg) for s in range(0, h.shape[0], chunk)))]
+
+
+@pytest.mark.parametrize("F,N,B", [
+    *((F, N, 64) for F in (32, 16) for N in (55, 64, 13)),  # the presets' N, four full tiles
+    (32, 55, 256), (32, 55, 2048),  # the fill's launch, phase 3's
+])
+def test_egcl_tf32_backward_matches_plain(cuda, F, N, B):
+    """The 3xTF32 K3 against layer_vjp in f32 at chip_smoke.py's TOL_F32, on
+    random weights at F = 16 and the bench's layer at F = 32, attention and
+    tanh on and off; egnn_layer_backward sends f32 there and nowhere else;
+    two launches on the same inputs are bitwise equal."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    g = torch.Generator(device=cuda).manual_seed(N + 4)
+    x = torch.randn(B, N, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(B, N, F, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    gh, gx = torch.randn_like(h), torch.randn_like(x)
+    for attention, tanh in ((True, True), (False, False), (True, False)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.float32)
+        counts = lambda: (el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches,
+                          el.egnn_layer_backward_tf32.launches)
+        before = counts()
+        got = el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg)
+        again = el.egnn_layer_backward_tf32(h, x, ea, gh, gx, w, **cfg)
+        assert counts() == (before[0], before[1], before[2] + 2)
+        ref = _plain_vjp(h, x, ea, gh, gx, w, cfg)
+        torch.cuda.synchronize()
+        for a, a2, b in zip(got, again, ref):
+            assert torch.equal(a, a2)
+            assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+        assert not got[2].diagonal(dim1=1, dim2=2).any()
+
+
+def test_egcl_tf32_backward_is_deterministic(cuda):
+    """The sums over receivers and senders run in a fixed order with no
+    atomics: three launches at the fill's 256 chains, on inputs far from 0
+    (t = 1's spread), are bitwise equal, and equal to the scalar K3 within
+    TOL_F32."""
+    w = _bench_layer(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(256, 55, 3, generator=g, device=cuda) * 1.5
+    h = torch.randn(256, 55, 32, generator=g, device=cuda) * 3.0
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    gh, gx = torch.randn_like(h), torch.randn_like(x)
+    cfg = dict(attention=True, tanh=True, coords_range=5.0, cd=torch.float32)
+    runs = [el.egnn_layer_backward_tf32(h, x, ea, gh, gx, w, **cfg) for _ in range(3)]
+    before = el.egnn_layer_backward.launches
+    scalar = el._backward_scalar(h, x, ea, gh, gx, w, **cfg)
+    assert el.egnn_layer_backward.launches == before + 1
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    for a, b in zip(runs[0], scalar):
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+
+
+def test_egcl_tf32_backward_refuses_and_routes_by_shape(cuda):
+    """The rule of egnn_layer.tf32_takes for K3: f32 at N > 64 runs the
+    scalar K3; the 3xTF32 wrapper itself refuses bf16, N > 64 and F outside
+    (16, 32), and launches nothing then."""
+    w = _random_layer(16, cuda, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(3, 65, 3, generator=g, device=cuda)
+    h = torch.randn(3, 65, 16, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    gh, gx = torch.randn_like(h), torch.randn_like(x)
+    before = (el.egnn_layer_backward.launches, el.egnn_layer_backward_tf32.launches)
+    got = el.egnn_layer_backward(h, x, ea, gh, gx, w)
+    assert (el.egnn_layer_backward.launches, el.egnn_layer_backward_tf32.launches) == (
+        before[0] + 1, before[1])
+    ref = el.layer_vjp(h, x, ea, gh, gx, w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max() <= 2e-4 * b.abs().max()
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_backward_tf32(h, x, ea, gh, gx, w)
+    s13 = tuple(t[:, :13].contiguous() for t in (h, x))
+    args13 = (*s13, ea[:, :13, :13].contiguous(), gh[:, :13].contiguous(),
+              gx[:, :13].contiguous())
+    with pytest.raises(ValueError, match="f32 only"):
+        el.egnn_layer_backward_tf32(*args13, w, cd=torch.bfloat16)
+    w24 = _random_layer(24, cuda, seed=2)
+    z = lambda *s: torch.zeros(*s, device=cuda)
+    with pytest.raises(ValueError, match="N <= 64"):
+        el.egnn_layer_backward_tf32(z(2, 13, 24), z(2, 13, 3), z(2, 13, 13), z(2, 13, 24),
+                                    z(2, 13, 3), w24)
+    assert el.egnn_layer_backward_tf32.launches == before[1]
+    assert el._lib_bwd_tf32().pita_egcl_bwd_tf32_max_n() == el.TF32_MAX_N
 
 
 def test_egcl_f32_forward_routes_by_shape(cuda):
@@ -630,9 +727,10 @@ def test_exact_generic_divergence_on_the_card(cuda):
     bb = bb.to(cuda)
     t = torch.rand(4, generator=g).to(cuda)
     x = (torch.randn(4, 39, generator=g) * 0.5).to(cuda)
-    before = el.egnn_layer_backward.launches
+    before = el.egnn_layer_backward_tf32.launches
     tr_rev = exact_divergence(lambda tq, xq: bb(tq, xq, 1.0), t, x, row_chunk=16)
-    assert el.egnn_layer_backward.launches == before + 2 * 3  # 2 layers x 3 chunks of rows
+    # the f32 K3 in 3xTF32 (N = 13): 2 layers x 3 chunks of rows
+    assert el.egnn_layer_backward_tf32.launches == before + 2 * 3
     _, tr_op = egnn_jacobian_trace(bb, t, x, 1.0)
     torch.cuda.synchronize()
     assert (tr_rev - tr_op).abs().max() <= 1e-4 * tr_op.abs().max()
@@ -664,14 +762,14 @@ def test_training_step_repacks_the_sampler_kernels(cuda, tmp_path):
     h = torch.randn(64, 13, 16, generator=g, device=cuda)
     ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
     gh, gx = torch.randn_like(h), torch.randn_like(x)
-    n_fwd, n_bwd = el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches
+    n_fwd, n_bwd = el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward_tf32.launches
     with torch.no_grad():
         ho, xo = layer(h, x, ea)
         ref = el.layer_step(h, x, ea, w, **layer.cfg)
     dh, dx, dea = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=layer.packed(cuda),
-                                         **layer.cfg)
+                                         packed_tc=layer.packed(cuda, tc=True), **layer.cfg)
     ref_b = el.layer_vjp(h, x, ea, gh, gx, w, **layer.cfg)
-    assert (el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches) == (
+    assert (el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward_tf32.launches) == (
         n_fwd + 1, n_bwd + 1)
     assert torch.equal(layer.packed(cuda, tc=True), el.pack_weights_tf32(w).to(cuda))
     torch.cuda.synchronize()

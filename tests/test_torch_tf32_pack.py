@@ -26,9 +26,12 @@ def _weights(F, seed):
 
 
 def _expected(w):
-    """The six right operands M of csrc/mma_tf32.cuh:tfoff, in its order."""
+    """The ten right operands M of csrc/mma_tf32.cuh:tfoff, in its order: the
+    six of the forward and the tangent, then the VJP's transposes."""
     return dict(e2=w["w_e2"], c1=w["w_c1"], c1t=w["w_c1"].T,
-                sd=torch.cat([w["w_src"], w["w_dst"]], 1), n1=w["w_n1"], n2=w["w_n2"])
+                sd=torch.cat([w["w_src"], w["w_dst"]], 1), n1=w["w_n1"], n2=w["w_n2"],
+                e2t=w["w_e2"].T, n2t=w["w_n2"].T, n1t=w["w_n1"].T,
+                sdt=torch.cat([w["w_src"].T, w["w_dst"].T], 0))
 
 
 def _unpack(buf, F):
@@ -36,7 +39,8 @@ def _unpack(buf, F):
     buf = buf.numpy()
     out, off = {}, 0
     for name, (K, NO) in (("e2", (F, F)), ("c1", (F, F)), ("c1t", (F, F)), ("sd", (F, 2 * F)),
-                          ("n1", (2 * F, F)), ("n2", (F, F))):
+                          ("n1", (2 * F, F)), ("n2", (F, F)), ("e2t", (F, F)), ("n2t", (F, F)),
+                          ("n1t", (F, 2 * F)), ("sdt", (2 * F, F))):
         hi, lo = np.zeros((K, NO), np.float32), np.zeros((K, NO), np.float32)
         for nt in range(NO // 8):
             for ks in range(K // 8):
@@ -47,7 +51,8 @@ def _unpack(buf, F):
                     hi[k, n], hi[k + 1, n], lo[k, n], lo[k + 1, n] = buf[q:q + 4]
         out[name] = (hi, lo)
         off += 2 * K * NO
-    assert off == buf.size == 16 * F * F
+    # tfoff(F).total: the six matrices of K2 and K4 (16 F^2), K3's four (12 F^2)
+    assert off == buf.size == 28 * F * F
     return out
 
 
