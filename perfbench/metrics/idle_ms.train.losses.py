@@ -1,0 +1,11 @@
+"""idle_ms.train.losses (ms): the card's idle time inside the program's
+`train.losses` spans (compute_losses with its inner force gradient), per
+optimizer step: each gap between device operations in the traced window, split
+by its overlap with those spans, summed, over the number of `train.step` spans.
+Layer: the training step (pita_torch/train/trainer.py)."""
+
+from perfbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "train.losses", "train.step")

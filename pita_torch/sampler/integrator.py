@@ -13,7 +13,11 @@ the true target, negative-time descent and adaptive MALA on the target's
 The step flags are host-side numpy, so the loop branches only on them; every
 data-dependent choice (the ESS trigger, MALA acceptance, the step-size
 update) is a ``torch.where`` on the device. Nothing inside a step waits for
-the device, so a later change can capture the step in a CUDA graph.
+the device, so a later change can capture the step in a CUDA graph. Each
+step and its parts are marked by spans (``pita_torch/utils/tracing.py``:
+``sampler.step`` over ``sampler.update``, ``energy_grad``, ``score``,
+``divergence``, ``weights``, ``resample``), which record only under a
+profiler and do no device work.
 
 Randomness comes from a ``draws`` object (see ``GeneratorDraws``), so a test
 can replay another framework's draws step for step.
@@ -39,6 +43,7 @@ from pita_torch.ops.resampling import count_unique, systematic_resample
 from pita_torch.sampler.terms import compute_sde_terms
 from pita_torch.utils.device import resolve_device
 from pita_torch.utils.mean_free import remove_mean
+from pita_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,116 +206,124 @@ def integrate_sde(x1, score_wrapper, energy_wrapper, noise_schedule, annealing_s
     are this rank's rows (``pita_torch.parallel.sharded_integrate`` makes
     both) and the result is global.
     """
-    dev = resolve_device(device)
-    x = x1.to(dev, torch.float32)
-    if draws is None:
-        draws = GeneratorDraws(torch.Generator(dev).manual_seed(seed))
-    resampling_interval = cfg.resampling_interval
-    B, D = x.shape
-    n = cfg.num_integration_steps
-    times = torch.linspace(cfg.time_range, 0.0, n + 1, device=dev)[:-1]
-    dt = cfg.time_range / n
-    sqrt_dt = math.sqrt(dt)
-    in_window, freeze, resample_f, rediv = step_flags(cfg, resampling_interval)
-    weights_on = resampling_interval != -1
-    carry_div = cfg.divergence_update_interval > 1 and weights_on
-    mean_free = cfg.should_mean_free and getattr(target, "is_molecule", False)
-    n_part = getattr(target, "n_particles", 1)
-    n_sdim = getattr(target, "n_spatial_dim", D)
+    with span("sampler.integrate", chains=x1.shape[0], steps=cfg.num_integration_steps):
+        dev = resolve_device(device)
+        x = x1.to(dev, torch.float32)
+        if draws is None:
+            draws = GeneratorDraws(torch.Generator(dev).manual_seed(seed))
+        resampling_interval = cfg.resampling_interval
+        B, D = x.shape
+        n = cfg.num_integration_steps
+        times = torch.linspace(cfg.time_range, 0.0, n + 1, device=dev)[:-1]
+        dt = cfg.time_range / n
+        sqrt_dt = math.sqrt(dt)
+        in_window, freeze, resample_f, rediv = (
+            f.tolist() for f in step_flags(cfg, resampling_interval))
+        weights_on = resampling_interval != -1
+        carry_div = cfg.divergence_update_interval > 1 and weights_on
+        mean_free = cfg.should_mean_free and getattr(target, "is_molecule", False)
+        n_part = getattr(target, "n_particles", 1)
+        n_sdim = getattr(target, "n_spatial_dim", D)
 
-    a = torch.zeros(B, device=dev)
-    div_c = torch.zeros(B, device=dev)
-    B_all = B if group is None else B * group.world_size
-    full_B = torch.full((), B_all, dtype=torch.int32, device=dev)
-    lw_rows, nu_rows = [], []
-    stats = {"divergence": [], "cross_term": [], "dUt_dt": []}
-    for i in range(n):
-        t = times[i].expand(B)
-        override = div_c if carry_div and not rediv[i] else None
-        probes = None
-        if weights_on and override is None and cfg.debias_inference:
-            if cfg.divergence_mode == "hutchinson":
-                probes = draws.probes(i, cfg.hutchinson_probes, (B, D))
-            elif cfg.divergence_mode == "hutchpp":
-                probes = draws.hutchpp_probes(i, cfg.hutchpp_rank, cfg.hutchinson_probes,
-                                              (B, D))
-        terms = compute_sde_terms(
-            score_wrapper, energy_wrapper, noise_schedule, annealing_schedule, t, x, beta,
-            debias=cfg.debias_inference, compute_weights=weights_on,
-            clip_quantile=cfg.weight_clip_quantile, divergence_mode=cfg.divergence_mode,
-            divergence_chunk_size=cfg.divergence_chunk_size,
-            divergence_tangent_chunk=cfg.divergence_tangent_chunk,
-            divergence_g_kernel=cfg.divergence_g_kernel,
-            divergence_tangent_kernel=cfg.divergence_tangent_kernel,
-            kernel_tangent_chunk=cfg.kernel_tangent_chunk,
-            probes=probes, div_bt_override=override, pin_energy=cfg.pin_energy,
-            energy_function=target.log_prob if cfg.pin_energy else None, group=group,
+        a = torch.zeros(B, device=dev)
+        div_c = torch.zeros(B, device=dev)
+        B_all = B if group is None else B * group.world_size
+        full_B = torch.full((), B_all, dtype=torch.int32, device=dev)
+        lw_rows, nu_rows = [], []
+        stats = {"divergence": [], "cross_term": [], "dUt_dt": []}
+        for i in range(n):
+            with span("sampler.step", step=i, rediv=rediv[i], resample=resample_f[i]):
+                t = times[i].expand(B)
+                override = div_c if carry_div and not rediv[i] else None
+                probes = None
+                with span("sampler.update"):
+                    if weights_on and override is None and cfg.debias_inference:
+                        if cfg.divergence_mode == "hutchinson":
+                            probes = draws.probes(i, cfg.hutchinson_probes, (B, D))
+                        elif cfg.divergence_mode == "hutchpp":
+                            probes = draws.hutchpp_probes(i, cfg.hutchpp_rank,
+                                                          cfg.hutchinson_probes, (B, D))
+                terms = compute_sde_terms(
+                    score_wrapper, energy_wrapper, noise_schedule, annealing_schedule, t, x,
+                    beta, debias=cfg.debias_inference, compute_weights=weights_on,
+                    clip_quantile=cfg.weight_clip_quantile,
+                    divergence_mode=cfg.divergence_mode,
+                    divergence_chunk_size=cfg.divergence_chunk_size,
+                    divergence_tangent_chunk=cfg.divergence_tangent_chunk,
+                    divergence_g_kernel=cfg.divergence_g_kernel,
+                    divergence_tangent_kernel=cfg.divergence_tangent_kernel,
+                    kernel_tangent_chunk=cfg.kernel_tangent_chunk,
+                    probes=probes, div_bt_override=override, pin_energy=cfg.pin_energy,
+                    energy_function=target.log_prob if cfg.pin_energy else None, group=group,
+                )
+                div_new = terms.divergence if terms.divergence is not None else div_c
+                with span("sampler.update"):
+                    noise = draws.noise(i, (B, D))
+                    u0 = draws.resample_u0(i)
+                    if freeze[i]:
+                        x_next = x
+                    else:
+                        diffusion = cfg.diffusion_scale * noise_schedule.g(times[i]) * noise
+                        x_next = x + terms.drift_X * dt + diffusion * sqrt_dt
+                    if mean_free:
+                        x_next = remove_mean(x_next, n_part, n_sdim)
+                    a_next = a + terms.drift_A * dt if in_window[i] else torch.zeros_like(a)
+
+                n_unique = full_B
+                if resample_f[i]:
+                    with span("sampler.resample"):
+                        a_all = _all(group, a_next)
+                        choice = systematic_resample(a_all, u0)
+                        fire = torch.ones((), dtype=torch.bool, device=dev)
+                        if cfg.ess_resampling_threshold is not None:
+                            ess = effective_sample_size(a_all, normalize=True)
+                            fire = ess < cfg.ess_resampling_threshold
+                        # the carried divergence follows its chain through resampling
+                        x_pick, div_pick = _pick(group, choice, x_next, div_new)
+                        x_next = torch.where(fire, x_pick, x_next)
+                        a_next = torch.where(fire, torch.zeros_like(a_next), a_next)
+                        div_new = torch.where(fire, div_pick, div_new)
+                        n_unique = torch.where(fire, count_unique(choice, B_all), full_B)
+
+                with span("sampler.update"):
+                    x, a, div_c = x_next, a_next, div_new
+                    lw_rows.append(a)
+                    nu_rows.append(n_unique)
+                    for k, v in zip(stats, _stds((terms.divergence, terms.cross_term,
+                                                  terms.dUt_dt), x, group)):
+                        stats[k].append(v)
+
+        if cfg.resample_at_end and weights_on and resampling_interval < n:
+            # final resample against the true target, the learned energy as the
+            # proposal log-density (sde_integration.py:158-184)
+            t_end = times[min(cfg.end_resampling_step, n - 1)].expand(B)
+            pin_kw = (dict(pin=True, t=t_end, energy_function=target.log_prob)
+                      if cfg.pin_energy else {})
+            with torch.no_grad():
+                model_energy = energy_wrapper.energy(noise_schedule.h(t_end), x, beta, **pin_kw)
+            logq0 = -model_energy * annealing_schedule.gamma(t_end)
+            a_end = _all(group, target.log_prob(x) - logq0 + a)
+            a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))
+            choice = systematic_resample(a_end, draws.end_u0())
+            (x,) = _pick(group, choice, x)
+            lw_rows.append(a_end if group is None else group.shard(a_end))
+            nu_rows.append(count_unique(choice, B_all))
+
+        if cfg.num_negative_time_steps > 0:
+            x = negative_time_descent(x, target, cfg.num_negative_time_steps,
+                                      cfg.dt_negative_time, cfg.do_langevin, draws, mean_free)
+
+        acceptance = torch.zeros(0, device=dev)
+        if cfg.post_mcmc_steps > 0:
+            x, acceptance = mala(x, target, cfg.post_mcmc_steps, cfg.dt_negative_time,
+                                 cfg.adaptive_mcmc, draws, mean_free, group=group)
+
+        lw = torch.stack(lw_rows)
+        if group is not None:
+            x, lw = group.gather_rows(x), group.gather_rows(lw, dim=1)
+        return IntegrateResult(
+            x, lw, torch.stack(nu_rows), {k: torch.stack(v) for k, v in stats.items()}, acceptance,
         )
-        div_new = terms.divergence if terms.divergence is not None else div_c
-        noise = draws.noise(i, (B, D))
-        u0 = draws.resample_u0(i)
-        if freeze[i]:
-            x_next = x
-        else:
-            diffusion = cfg.diffusion_scale * noise_schedule.g(times[i]) * noise
-            x_next = x + terms.drift_X * dt + diffusion * sqrt_dt
-        if mean_free:
-            x_next = remove_mean(x_next, n_part, n_sdim)
-        a_next = a + terms.drift_A * dt if in_window[i] else torch.zeros_like(a)
-
-        n_unique = full_B
-        if resample_f[i]:
-            a_all = _all(group, a_next)
-            choice = systematic_resample(a_all, u0)
-            fire = torch.ones((), dtype=torch.bool, device=dev)
-            if cfg.ess_resampling_threshold is not None:
-                ess = effective_sample_size(a_all, normalize=True)
-                fire = ess < cfg.ess_resampling_threshold
-            # the carried divergence follows its chain through resampling
-            x_pick, div_pick = _pick(group, choice, x_next, div_new)
-            x_next = torch.where(fire, x_pick, x_next)
-            a_next = torch.where(fire, torch.zeros_like(a_next), a_next)
-            div_new = torch.where(fire, div_pick, div_new)
-            n_unique = torch.where(fire, count_unique(choice, B_all), full_B)
-
-        x, a, div_c = x_next, a_next, div_new
-        lw_rows.append(a)
-        nu_rows.append(n_unique)
-        for k, v in zip(stats, _stds((terms.divergence, terms.cross_term, terms.dUt_dt), x,
-                                     group)):
-            stats[k].append(v)
-
-    if cfg.resample_at_end and weights_on and resampling_interval < n:
-        # final resample against the true target, the learned energy as the
-        # proposal log-density (sde_integration.py:158-184)
-        t_end = times[min(cfg.end_resampling_step, n - 1)].expand(B)
-        pin_kw = (dict(pin=True, t=t_end, energy_function=target.log_prob)
-                  if cfg.pin_energy else {})
-        with torch.no_grad():
-            model_energy = energy_wrapper.energy(noise_schedule.h(t_end), x, beta, **pin_kw)
-        logq0 = -model_energy * annealing_schedule.gamma(t_end)
-        a_end = _all(group, target.log_prob(x) - logq0 + a)
-        a_end = torch.minimum(a_end, torch.quantile(a_end, 0.9))
-        choice = systematic_resample(a_end, draws.end_u0())
-        (x,) = _pick(group, choice, x)
-        lw_rows.append(a_end if group is None else group.shard(a_end))
-        nu_rows.append(count_unique(choice, B_all))
-
-    if cfg.num_negative_time_steps > 0:
-        x = negative_time_descent(x, target, cfg.num_negative_time_steps,
-                                  cfg.dt_negative_time, cfg.do_langevin, draws, mean_free)
-
-    acceptance = torch.zeros(0, device=dev)
-    if cfg.post_mcmc_steps > 0:
-        x, acceptance = mala(x, target, cfg.post_mcmc_steps, cfg.dt_negative_time,
-                             cfg.adaptive_mcmc, draws, mean_free, group=group)
-
-    lw = torch.stack(lw_rows)
-    if group is not None:
-        x, lw = group.gather_rows(x), group.gather_rows(lw, dim=1)
-    return IntegrateResult(
-        x, lw, torch.stack(nu_rows), {k: torch.stack(v) for k, v in stats.items()}, acceptance,
-    )
 
 
 def negative_time_descent(x, target, num_steps, dt, do_langevin, draws, mean_free):

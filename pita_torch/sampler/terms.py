@@ -38,6 +38,7 @@ from pita_torch.nets.egnn_fast import score_divergence_fast, supports_fast_diver
 from pita_torch.nets.precondition import bcast
 from pita_torch.ops.divergence import (exact_divergence, exact_laplacian,
                                        hutchinson_divergence, hutchpp_divergence)
+from pita_torch.utils.tracing import span
 
 
 def _autograd_route(wrapper):
@@ -84,69 +85,76 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
     has_score = score_wrapper is not None
 
     if not debias:
-        with torch.no_grad():
+        with span("sampler.score"), torch.no_grad():
             s_t = score_wrapper.score(ht, x, beta)
         return SDETerms(gamma[:, None] * s_t * g2[:, None], torch.zeros_like(t))
 
     pin_kw = dict(pin=True, t=t, energy_function=energy_function) if pin_energy else {}
-    with torch.enable_grad():
-        xx = x.detach().requires_grad_(True)
-        tt = t.detach().requires_grad_(True)
-        U = energy_wrapper.energy(noise_schedule.h(tt), xx, beta, **pin_kw)
-        nabla_U, dU_dt = torch.autograd.grad(U.sum(), (xx, tt))
-    U = U.detach()
+    with span("sampler.energy_grad"):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            tt = t.detach().requires_grad_(True)
+            U = energy_wrapper.energy(noise_schedule.h(tt), xx, beta, **pin_kw)
+            nabla_U, dU_dt = torch.autograd.grad(U.sum(), (xx, tt))
+        U = U.detach()
 
-    if has_score:
-        with torch.no_grad():
-            bt = score_wrapper.score(ht, x, beta) * g2[:, None] / 2
-    else:
-        bt = -nabla_U * g2[:, None] / 2
-    drift_X = gamma[:, None] * (-nabla_U) * g2[:, None] / 2 + gamma[:, None] * bt
+    with span("sampler.score"):
+        if has_score:
+            with torch.no_grad():
+                bt = score_wrapper.score(ht, x, beta) * g2[:, None] / 2
+        else:
+            bt = -nabla_U * g2[:, None] / 2
+    with span("sampler.weights"):
+        drift_X = gamma[:, None] * (-nabla_U) * g2[:, None] / 2 + gamma[:, None] * bt
 
     if not compute_weights:
         return SDETerms(drift_X, torch.zeros_like(t))
 
     if div_bt_override is not None:
         div_bt = div_bt_override
-    elif has_score and divergence_mode == "hutchinson":
-        if probes is None:
-            raise ValueError("hutchinson divergence needs probes")
-        score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
-        div_bt = hutchinson_divergence(score_fn, t, x, probes) * g2 / 2
-    elif has_score and divergence_mode in ("exact", "exact_generic"):
-        backbone = getattr(score_wrapper, "backbone", None)
-        if divergence_mode == "exact" and supports_fast_divergence(backbone):
-            div_st = score_divergence_fast(
-                score_wrapper, ht, x, beta, tangent_chunk=divergence_tangent_chunk,
-                chain_chunk=divergence_chunk_size, tangent_kernel=divergence_tangent_kernel,
-                kernel_tangent_chunk=kernel_tangent_chunk, g_kernel=divergence_g_kernel,
-            )
-        else:
-            score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
-            div_st = exact_divergence(score_fn, t, x, chunk_size=divergence_chunk_size)
-        div_bt = div_st * g2 / 2
-    elif has_score and divergence_mode == "hutchpp":
-        if probes is None:
-            raise ValueError("hutchpp divergence needs probes (S, G)")
-        twin = _autograd_route(score_wrapper)
-        score_fn = lambda tq, xq: twin.score(noise_schedule.h(tq), xq, beta)
-        div_bt = hutchpp_divergence(score_fn, t, x, *probes) * g2 / 2
-    elif has_score:
-        raise ValueError(f"unknown divergence_mode {divergence_mode!r}")
     else:
-        twin = _autograd_route(energy_wrapper)
-        U_fn = lambda tq, xq: twin.energy(noise_schedule.h(tq), xq, beta, **pin_kw)
-        lap_U = exact_laplacian(U_fn, t, x, chunk_size=divergence_chunk_size)
-        div_bt = -lap_U * g2 / 2
+        with span("sampler.divergence", mode=divergence_mode):
+            if has_score and divergence_mode == "hutchinson":
+                if probes is None:
+                    raise ValueError("hutchinson divergence needs probes")
+                score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
+                div_bt = hutchinson_divergence(score_fn, t, x, probes) * g2 / 2
+            elif has_score and divergence_mode in ("exact", "exact_generic"):
+                backbone = getattr(score_wrapper, "backbone", None)
+                if divergence_mode == "exact" and supports_fast_divergence(backbone):
+                    div_st = score_divergence_fast(
+                        score_wrapper, ht, x, beta, tangent_chunk=divergence_tangent_chunk,
+                        chain_chunk=divergence_chunk_size,
+                        tangent_kernel=divergence_tangent_kernel,
+                        kernel_tangent_chunk=kernel_tangent_chunk, g_kernel=divergence_g_kernel,
+                    )
+                else:
+                    score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
+                    div_st = exact_divergence(score_fn, t, x, chunk_size=divergence_chunk_size)
+                div_bt = div_st * g2 / 2
+            elif has_score and divergence_mode == "hutchpp":
+                if probes is None:
+                    raise ValueError("hutchpp divergence needs probes (S, G)")
+                twin = _autograd_route(score_wrapper)
+                score_fn = lambda tq, xq: twin.score(noise_schedule.h(tq), xq, beta)
+                div_bt = hutchpp_divergence(score_fn, t, x, *probes) * g2 / 2
+            elif has_score:
+                raise ValueError(f"unknown divergence_mode {divergence_mode!r}")
+            else:
+                twin = _autograd_route(energy_wrapper)
+                U_fn = lambda tq, xq: twin.energy(noise_schedule.h(tq), xq, beta, **pin_kw)
+                lap_U = exact_laplacian(U_fn, t, x, chunk_size=divergence_chunk_size)
+                div_bt = -lap_U * g2 / 2
 
-    inner = (-nabla_U * bt).sum(-1)
-    drift_A = (
-        gamma * gamma * inner
-        + gamma * div_bt
-        + gamma * dU_dt
-        + annealing_schedule.dgamma_dt(t) * U
-    )
-    if clip_quantile < 1.0:
-        every = drift_A if group is None else group.gather_rows(drift_A)
-        drift_A = torch.minimum(drift_A, torch.quantile(every, clip_quantile))
+    with span("sampler.weights"):
+        inner = (-nabla_U * bt).sum(-1)
+        drift_A = (
+            gamma * gamma * inner
+            + gamma * div_bt
+            + gamma * dU_dt
+            + annealing_schedule.dgamma_dt(t) * U
+        )
+        if clip_quantile < 1.0:
+            every = drift_A if group is None else group.gather_rows(drift_A)
+            drift_A = torch.minimum(drift_A, torch.quantile(every, clip_quantile))
     return SDETerms(drift_X, drift_A, div_bt, inner, dU_dt)

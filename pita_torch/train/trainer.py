@@ -66,6 +66,7 @@ from pita_torch.train.losses import LossConfig, LossDraws, compute_losses, draw_
 from pita_torch.train.losses import stratified_losses
 from pita_torch.train.optim import adam_init, adam_update, clip_by_global_norm, make_lr_schedule
 from pita_torch.utils.device import resolve_device
+from pita_torch.utils.tracing import span
 
 
 def fill_with_quality_floor(sample_fn, integrator_cfg, trainer_cfg, n_request: int,
@@ -329,40 +330,46 @@ class EnergyTempTrainer:
         """One optimizer step on a batch of rung ``temp_idx``'s buffer
         (trainer.py:411-452). Returns (the losses as 0-d tensors, the global
         gradient norm before clipping)."""
-        cfg = self.cfg
-        d = draws if draws is not None else self.draw_step(temp_idx)
-        n_p, n_d = self.n_particles, self.n_spatial_dim
-        x0, e0, f0, _ = buffer_sample(buffer_view(self.buffers, temp_idx),
-                                      cfg.training_batch_size, idx=d.idx)
-        if self.is_molecule:
-            x0, f0 = rotate_augment(x0, f0, n_p, n_d, normal=d.rot_normal)
-        if self.is_molecule and not self.mean_free:
-            x0 = com_augment(x0, n_p, n_d, normal=d.com_normal)
-        total, aux = compute_losses(
-            self.score, self.energy, self.noise_schedule, self.loss_cfg, x0, e0, f0,
-            float(self.inverse_temperatures[temp_idx]), target=self.targets[temp_idx],
-            n_particles=n_p, n_spatial_dim=n_d, mean_free=self.mean_free, draws=d.loss)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        g_norm = self._apply_gradients(grads)
-        scalars = {k: v.detach() for k, v in aux.items()
-                   if not k.endswith("per_sample") and k != "ln_sigma"}
-        return scalars, g_norm
+        with span("train.step", rung=temp_idx):
+            cfg = self.cfg
+            n_p, n_d = self.n_particles, self.n_spatial_dim
+            with span("train.batch"):
+                d = draws if draws is not None else self.draw_step(temp_idx)
+                x0, e0, f0, _ = buffer_sample(buffer_view(self.buffers, temp_idx),
+                                              cfg.training_batch_size, idx=d.idx)
+                if self.is_molecule:
+                    x0, f0 = rotate_augment(x0, f0, n_p, n_d, normal=d.rot_normal)
+                if self.is_molecule and not self.mean_free:
+                    x0 = com_augment(x0, n_p, n_d, normal=d.com_normal)
+            with span("train.losses"):
+                total, aux = compute_losses(
+                    self.score, self.energy, self.noise_schedule, self.loss_cfg, x0, e0, f0,
+                    float(self.inverse_temperatures[temp_idx]), target=self.targets[temp_idx],
+                    n_particles=n_p, n_spatial_dim=n_d, mean_free=self.mean_free, draws=d.loss)
+            with span("train.backward"):
+                grads = torch.autograd.grad(total, self.params, allow_unused=True)
+            g_norm = self._apply_gradients(grads)
+            scalars = {k: v.detach() for k, v in aux.items()
+                       if not k.endswith("per_sample") and k != "ln_sigma"}
+            return scalars, g_norm
 
     def _apply_gradients(self, grads) -> torch.Tensor:
         """Global-norm clipping and Adam over both nets (a None gradient
         counts as zeros), the update, then the EMA of both nets. Returns the
         global gradient norm before clipping."""
         cfg = self.cfg
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
-        grads, g_norm = clip_by_global_norm(grads, cfg.grad_clip)
-        updates, self.opt_state = adam_update(grads, self.opt_state,
-                                              self.lr_at(self.opt_state.count))
-        with torch.no_grad():
-            for p, u in zip(self.params, updates):
-                p.add_(u)
+        with span("train.optimizer"):
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+            grads, g_norm = clip_by_global_norm(grads, cfg.grad_clip)
+            updates, self.opt_state = adam_update(grads, self.opt_state,
+                                                  self.lr_at(self.opt_state.count))
+            with torch.no_grad():
+                for p, u in zip(self.params, updates):
+                    p.add_(u)
         if cfg.ema_decay > 0:
-            self.ema_score.update(self.score_net, cfg.ema_decay)
-            self.ema_energy.update(self.energy_net, cfg.ema_decay)
+            with span("train.ema"):
+                self.ema_score.update(self.score_net, cfg.ema_decay)
+                self.ema_energy.update(self.energy_net, cfg.ema_decay)
         return g_norm.detach()
 
     def epoch_temp_indices(self) -> list:

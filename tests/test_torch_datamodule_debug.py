@@ -17,7 +17,8 @@ import torch
 from pita_torch.io.datamodule import (com_energy_correction, download_dataset,
                                       importance_weights, plot_reweighted_histograms)
 from pita_torch.targets import GMM40, LJ13, ALPEnergy
-from pita_torch.utils.debug import detect_anomaly, profile_trace, timed
+from pita_torch.utils.debug import detect_anomaly, profile_trace
+from pita_torch.utils.tracing import span
 from pita_tpu.io import datamodule as jdm
 from pita_tpu.targets import GMM40 as JaxGMM40
 from pita_tpu.targets import LJ13 as JaxLJ13
@@ -144,13 +145,14 @@ def test_detect_anomaly_raises_on_nan_and_optionally_inf():
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with profile_trace(str(tmp_path / "trace")):
-        torch.randn(64, 64) @ torch.randn(64, 64)
+        with span("train.step", rung=0):
+            torch.randn(64, 64) @ torch.randn(64, 64)
     (name,) = os.listdir(tmp_path / "trace")
     with open(tmp_path / "trace" / name) as f:
         trace = json.load(f)
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
-
-
-def test_timed_returns_the_result_and_seconds():
-    out, secs = timed(lambda a, b=0: a + b, 2, b=3)
-    assert out == 5 and 0 <= secs < 5
+    events = trace["traceEvents"]
+    mm = [e for e in events if "mm" in e.get("name", "") and e.get("ph") == "X"]
+    (step,) = [e for e in events if e.get("cat") == "program_span"]
+    assert mm and step["name"] == "train.step" and step["args"]["rung"] == 0
+    # on the trace's clock: the product lies inside the span
+    assert step["ts"] <= mm[0]["ts"] and mm[0]["ts"] + mm[0]["dur"] <= step["ts"] + step["dur"]
