@@ -467,10 +467,13 @@ def phase_egcl(wl, data):
             ptc = (el.pack_weights_tc(w) if cd == torch.bfloat16 else el.pack_weights_tf32(w)).cuda()
             gh = torch.randn(h.shape, generator=gen, device="cuda")
             gx = torch.randn(x.shape, generator=gen, device="cuda")
-            ho_k, xo_k = el.egnn_layer_forward(h, x, ea, w, packed=packed, packed_tc=ptc, **cfg)
+            # the bf16 K2 hands its aggregate to the bf16 K3
+            ho_k, xo_k, *agg = el.egnn_layer_forward(h, x, ea, w, packed=packed, packed_tc=ptc,
+                                                     with_agg=cd == torch.bfloat16, **cfg)
             with torch.no_grad():
                 ho_p, xo_p = el.layer_step(h, x, ea, w, **cfg)
-            d_k = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=packed, packed_tc=ptc, **cfg)
+            d_k = el.egnn_layer_backward(h, x, ea, gh, gx, w, packed=packed, packed_tc=ptc,
+                                         agg=agg[0] if agg else None, **cfg)
             d_p = el.layer_vjp(h, x, ea, gh, gx, w, **cfg)
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip((ho_k, xo_k, *d_k), (ho_p, xo_p, *d_p))]
@@ -485,7 +488,7 @@ def phase_egcl(wl, data):
                 fail(f"EGCL kernels disagree with the plain version ({cd_name}, layer {li})")
             if li == 0:
                 res.update(egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx,
-                                       gen))
+                                       gen, *agg))
             with torch.no_grad():
                 h, x = ho_p, xo_p
         res[cd_name] = (worst_f, worst_b)
@@ -509,26 +512,29 @@ def first_step_inputs(wl, B, N, gen):
     return hp, xp, eap
 
 
-def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
+def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen, agg=None):
     """Layer 0 at the main path's shapes: times and bounds of K2 and K3 (f32:
-    egcl_layer0_f32). For bf16 also the scalar K2 timed beside the
-    tensor-core one, and the tensor-core K2 and K3 against the plain versions
-    on first-step inputs, at the Hutchinson launch's 4096 chains and at
-    LJ13's N = 13. Returns the JSON fields by kernel."""
+    egcl_layer0_f32). For bf16 (``agg`` the tensor-core K2's aggregate,
+    which K3 reads) also the tensor-core K2 timed with and without storing
+    its aggregate, the scalar K2 timed beside it, and the tensor-core K2
+    (its aggregate too) and K3 against the plain versions on first-step
+    inputs, at the Hutchinson launch's 4096 chains and at LJ13's N = 13.
+    Returns the JSON fields by kernel."""
     import torch
 
     B, N, F = h.shape
     if cd_name == "f32":
         return egcl_layer0_f32(wl, el, cfg, w, packed, ptc, h, x, ea, gh, gx)
-    fwd = lambda *a: el.egnn_layer_forward(*a, w, packed=packed, packed_tc=ptc, **cfg)
-    bwd = lambda *a: el.egnn_layer_backward(*a, w, packed=packed, packed_tc=ptc, **cfg)
-    ms_b = cuda_ms(lambda: bwd(h, x, ea, gh, gx), reps=10)
+    fwd = lambda *a, **k: el.egnn_layer_forward(*a, w, packed=packed, packed_tc=ptc, **k, **cfg)
+    bwd = lambda *a, agg: el.egnn_layer_backward(*a, w, packed=packed, packed_tc=ptc, agg=agg,
+                                                 **cfg)
+    ms_b = cuda_ms(lambda: bwd(h, x, ea, gh, gx, agg=agg), reps=10)
     pl_b = cuda_ms(lambda: el.layer_vjp(h, x, ea, gh, gx, w, **cfg), reps=3)
     E = B * N * (N - 1)
     node_ops = B * N * 10 * F * F  # src, dst and the node MLP
     wbytes = 4 * packed.numel()
     io_f = 4 * (2 * B * N * F + 2 * B * N * 3 + B * N * N) + wbytes
-    io_b = 4 * (3 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes
+    io_b = 4 * (4 * B * N * F + 3 * B * N * 3 + 2 * B * N * N) + wbytes  # with K2's agg
     # edge products: 2 F x F matmuls forward; the VJP rebuilds them and runs
     # their 2 transposes; bf16 inputs on tensor cores
     bb_ = egcl_bound(f"K3 {cd_name} B={B}", io_b, E * 8 * F * F + 2 * node_ops, PEAK_BF16, E, F)
@@ -540,13 +546,20 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
     # with the tensor-core K2 (scalar, tensor cores, tensor cores, scalar)
     scalar = lambda *a: el._forward_scalar(*a, w, packed, **cfg)
     turns = [cuda_ms(lambda: f(h, x, ea)) for f in (scalar, fwd, fwd, scalar)]
+    # the tensor-core K2 storing its aggregate (a forward that records a
+    # backward) in turns with it storing none (without, with, with, without)
+    agg_turns, ms_fa, ms_fn = in_turns(lambda: fwd(h, x, ea),
+                                       lambda: fwd(h, x, ea, with_agg=True))
     print(f"[phase 3] bf16 B={B} layer 0: tensor-core K2 {ms_f:.4f} ms, in turns with the "
           f"scalar K2 {' / '.join(f'{v:.4f}' for v in turns)} ms (scalar, tc, tc, scalar; "
-          f"plain {pl_f:.3f}); tensor-core K3 {ms_b:.4f} ms (plain {pl_b:.3f})")
+          f"plain {pl_f:.3f}); tensor-core K2 without / with its aggregate stored, in turns "
+          f"{' / '.join(f'{v:.4f}' for v in agg_turns)} ms (means {ms_fn:.4f} / {ms_fa:.4f}); "
+          f"tensor-core K3 on K2's aggregate {ms_b:.4f} ms (plain {pl_b:.3f})")
     hp, xp, eap = first_step_inputs(wl, B, N, gen)
     ms_f1 = cuda_ms(lambda: fwd(hp, xp, eap))
     ms_fs1 = cuda_ms(lambda: scalar(hp, xp, eap))
-    ms_b1 = cuda_ms(lambda: bwd(hp, xp, eap, gh, gx), reps=10)
+    agg1 = fwd(hp, xp, eap, with_agg=True)[2]
+    ms_b1 = cuda_ms(lambda: bwd(hp, xp, eap, gh, gx, agg=agg1), reps=10)
     worst_f = worst_b = 0.0
     counts = lambda: (el.egnn_layer_forward.launches, el.egnn_layer_forward_tc.launches,
                       el.egnn_layer_backward_tc.launches)
@@ -559,14 +572,17 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
                         tuple(t.contiguous() for t in (h[:, :13], x[:, :13], ea[:, :13, :13],
                                                        gh[:, :13], gx[:, :13])))):
         before = counts()
-        got_f, got_b = fwd(*args[:3]), bwd(*args)
+        got_f = fwd(*args[:3], with_agg=True)
+        got_b = bwd(*args, agg=got_f[2])
         if counts() != (before[0], before[1] + 1, before[2] + 1):
             fail("the bf16 layer did not launch the tensor-core K2 and K3 (and only them)")
         # the plain versions in chunks of 1024 chains: their edge tensors are 0.4 GB each
         chunks = range(0, args[0].shape[0], 1024)
         with torch.no_grad():
             ref_f = [torch.cat(p) for p in zip(*(
-                el.layer_step(*(t[c0:c0 + 1024] for t in args[:3]), w, **cfg) for c0 in chunks))]
+                (lambda o: (*o[:2], el._aggregate(o[2])))(el.layer_step(
+                    *(t[c0:c0 + 1024] for t in args[:3]), w, with_acts=True, **cfg))
+                for c0 in chunks))]
         ref_b = plain_vjp(el, args, w, cfg)
         torch.cuda.synchronize()
         errs_f = [rel_err(a, b) for a, b in zip(got_f, ref_f)]
@@ -575,19 +591,21 @@ def egcl_layer0(wl, el, cd_name, cfg, w, packed, ptc, h, x, ea, gh, gx, gen):
         worst_b = max([worst_b] + [e[1] for e in errs_b])
         print(f"[phase 3] tensor-core K2/K3 bf16 layer 0, {name}: rel err "
               + ", ".join(f"{n} {e[0]:.2e}" for n, e in zip(
-                  ("h_out", "x_out", "dh", "dx", "dea"), errs_f + errs_b))
+                  ("h_out", "x_out", "agg", "dh", "dx", "dea"), errs_f + errs_b))
               + f" (tol {TOL_BF16})")
         if not max(e[0] for e in errs_f + errs_b) <= TOL_BF16:
             fail(f"the tensor-core K2/K3 disagree with the plain versions on {name}")
         if args[0].shape[0] == 2 * B:
             h4, x4, ea4, gh4, gx4 = args
+            agg4 = got_f[2]
         del got_f, got_b, ref_f, ref_b
     ms_f4 = cuda_ms(lambda: fwd(h4, x4, ea4))
-    ms_b4 = cuda_ms(lambda: bwd(h4, x4, ea4, gh4, gx4), reps=10)
+    ms_b4 = cuda_ms(lambda: bwd(h4, x4, ea4, gh4, gx4, agg=agg4), reps=10)
     print(f"[phase 3] bf16 layer 0 on first-step inputs (B={B}): tensor-core K2 {ms_f1:.4f} ms, "
           f"scalar K2 {ms_fs1:.4f} ms, tensor-core K3 {ms_b1:.4f} ms; at B={2 * B}: "
           f"tensor-core K2 {ms_f4:.4f} ms, tensor-core K3 {ms_b4:.4f} ms")
-    return {"fwd": dict(ms=ms_f, plain_ms=pl_f, bound_ms=bf[0], bound_by=bf[1]),
+    return {"fwd": dict(ms=ms_f, ms_with_agg=ms_fa, plain_ms=pl_f, bound_ms=bf[0],
+                        bound_by=bf[1]),
             "bwd": dict(ms=ms_b, plain_ms=pl_b, bound_ms=bb_[0], bound_by=bb_[1]),
             "fwd_extra_err": worst_f, "bwd_extra_err": worst_b}
 

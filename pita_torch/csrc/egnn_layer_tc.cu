@@ -11,13 +11,19 @@
 // value, f32 accumulation, f32 elementwise math, and in the VJP the rounding
 // counts as the identity, so cotangents stay f32.
 //
-// What bounds it on the H100: per chain the edge chain runs five F x F
-// products per edge (the aggregation pass one, the edge pass two forward and
-// two transposed), 0.07 ms at 2048 chains on bf16 tensor cores, while the
-// sigmoids the function cannot avoid (sigma(z1), sigma(z2), sigma(cz), the
-// attention gate and a tanh per edge, each an exponential and a reciprocal)
-// take ~0.3 ms on the SFUs (16 per clock per SM). So the design keeps the
-// elementwise work minimal and the products on mma.sync:
+// What bounds it on the H100: per chain the edge chain runs four F x F
+// products per edge (two forward and two transposed), 0.06 ms at 2048 chains
+// on bf16 tensor cores, while the sigmoids the function cannot avoid
+// (sigma(z1), sigma(z2), sigma(cz), the attention gate and a tanh per edge,
+// each an exponential and a reciprocal) take ~0.3 ms on the SFUs (16 per
+// clock per SM). So the design keeps the elementwise work minimal and the
+// products on mma.sync:
+//  - The node MLP's backward needs agg_i = sum_j m_ij, which the forward
+//    K2 already summed: K2 stores it (f32, as summed) for every launch that
+//    records a backward, and K3 reads it. K3 no longer rebuilds it in a
+//    pass of its own over every edge, which cost 2F+1 sigmoids an edge, a
+//    block barrier a receiver and about a quarter of the instructions a
+//    lane issued.
 //  - One block of 4 warps per chain; warp w owns the senders j of tile w
 //    (16 edges, one m16 tile; N <= 64) and walks over all receivers i.
 //  - The edge chain z1 -> silu -> .W_e2 -> z2 -> silu*att -> .W_c1 -> cz runs
@@ -28,20 +34,20 @@
 //  - The transposed products (.W_c1^T, .W_e2^T) take f32 cotangents split
 //    into hi = bf16(g) and lo = bf16(g - hi): two mmas against the exact bf16
 //    weights give the f32 product to ~2^-16 relative.
-//  - Each pass computes every sigmoid once and keeps it for its derivative:
-//    2F+1 per edge in the aggregation pass, 3F+2 in the edge pass, with
-//    __expf and __fdividef in the overflow-safe form of egnn_common.cuh.
+//  - The edge pass computes each of its 3F+2 sigmoids an edge once and keeps
+//    it for its derivative, with __expf and __fdividef in the overflow-safe
+//    form of egnn_common.cuh.
 //  - Scalar heads (attention logit, cm, the radial and edge_attr cotangents)
-//    are quad shuffles; sums over a tile's edges (agg_i, the src cotangent)
-//    are in-lane adds plus a 3-level reduce-scatter, after which each lane
+//    are quad shuffles; the sum over a tile's edges (the src cotangent) is
+//    in-lane adds plus a 3-level reduce-scatter, after which each lane
 //    owns one feature. The x_j cotangent stays in the owning warp's registers
 //    across all i, the dst cotangent in its own rows of shared memory (in
 //    registers it pushed the kernel past 128 registers, into spills). The
 //    warps visit the receivers in lockstep with their start points N/T
 //    apart, so at each step they add into distinct rows of the per-chain sums
 //    in shared memory: no atomics, a fixed order, a deterministic result.
-//  - The node parts (src/dst projection, node MLP forward and backward, the
-//    final dh) run on mma.sync too, one 16-node tile per warp.
+//  - The node parts (src/dst projection, node MLP backward, the final dh)
+//    run on mma.sync too, one 16-node tile per warp.
 //  - Shared memory: the four edge weight matrices as bf16 (the node ones are
 //    read once per block from global memory) and the chain's node state,
 //    51.8 KB at F=32, N=55, so four blocks (16 warps) fit on an SM.
@@ -69,15 +75,15 @@ size_t tc_smem_floats(int N) {
 struct Smem {
   const __nv_bfloat16 *e2f, *c1f, *e2b, *c1b;
   const float *wr, *we, *be2, *watt, *bc1, *wc2, *batt;
-  // rows of F floats: src, agg, gagg (a warp reads one row at a time);
+  // rows of F floats: src, gsrc, gagg (a warp reads one row at a time);
   // rows of F + 8: dst, gdst (a warp reads 8 rows at once, on distinct banks)
-  float *src, *dst, *gdst, *agg, *gagg, *x, *gx, *dxr;
+  float *src, *dst, *gdst, *gsrc, *gagg, *x, *gx, *dxr;
 };
 
 // The front of the edge chain for receiver i and the lane's edges: z1 and
-// its sigmoid derivative (ds1, if wanted), the products to z2, m_pre =
-// silu(z2), its derivative (ds2, if wanted) and the attention gate per row.
-template <int F, bool GRAD>
+// its sigmoid derivative ds1, the products to z2, m_pre = silu(z2), its
+// derivative ds2 and the attention gate per row.
+template <int F>
 __device__ __forceinline__ void edge_front(const Smem& s, const Geo& e, int i, const Cfg& c,
                                            int lane, float (&ds1)[2][F / 4],
                                            float (&mp)[2][F / 4], float (&ds2)[2][F / 4],
@@ -103,7 +109,7 @@ __device__ __forceinline__ void edge_front(const Smem& s, const Geo& e, int i, c
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const float sg = sigm_fast(z[r][v]);
-      if (GRAD) ds1[r][v] = sg * (1.f + z[r][v] * (1.f - sg));
+      ds1[r][v] = sg * (1.f + z[r][v] * (1.f - sg));
       z[r][v] *= sg;  // silu(z1)
     }
   uint32_t a[F / 16][4];
@@ -119,7 +125,7 @@ __device__ __forceinline__ void edge_front(const Smem& s, const Geo& e, int i, c
       const float z2 = mp[r][v];
       const float sg = sigm_fast(z2);
       mp[r][v] = z2 * sg;
-      if (GRAD) ds2[r][v] = sg * (1.f + z2 * (1.f - sg));
+      ds2[r][v] = sg * (1.f + z2 * (1.f - sg));
       lg[r] += mp[r][v] * s.watt[col_of(v, t)];
     }
 #pragma unroll
@@ -130,7 +136,8 @@ __device__ __forceinline__ void edge_front(const Smem& s, const Geo& e, int i, c
 template <int F>
 __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
 egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
-                   const float* __restrict__ ea, const float* __restrict__ gh,
+                   const float* __restrict__ ea, const float* __restrict__ agg,
+                   const float* __restrict__ gh,
                    const float* __restrict__ gx, const float* __restrict__ wts,
                    const __nv_bfloat16* __restrict__ wtc, float* __restrict__ dh,
                    float* __restrict__ dx, float* __restrict__ dea, Cfg c) {
@@ -161,8 +168,8 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
   s.src = vec + 6 * F + 4;
   s.dst = s.src + N * F;
   s.gdst = s.dst + N * FS;
-  s.agg = s.gdst + N * FS;  // later the src cotangent
-  s.gagg = s.agg + N * F;
+  s.gsrc = s.gdst + N * FS;
+  s.gagg = s.gsrc + N * F;
   s.x = s.gagg + N * F;
   s.gx = s.x + X3;
   s.dxr = s.gx + X3;
@@ -188,7 +195,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
       s.gx[k] = gxb[k];
       s.dxr[k] = 0.f;
     }
-    for (int k = tid; k < N * F; k += kTcThreads) s.agg[k] = 0.f;
+    for (int k = tid; k < N * F; k += kTcThreads) s.gsrc[k] = 0.f;
     for (int k = tid; k < N * FS; k += kTcThreads) s.gdst[k] = 0.f;
   }
   const float* hb = h + (size_t)b * N * F;
@@ -212,35 +219,14 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
   }
   __syncthreads();
 
-  const float* eab = ea + (size_t)b * N * N;
-  float ds_unused[2][V];
-
-  // P1: the aggregation agg_i = sum_j m_ij (first edge product only)
-  for (int step = 0; step < N; ++step) {
-    if (warp < T) {
-      const int i = (step + warp * off) % N;
-      Geo e;
-      edge_geo(e, s.x, eab, i, n0, N, lane);
-      float mp[2][V], att[2];
-      edge_front<F, false>(s, e, i, c, lane, ds_unused, mp, ds_unused, att);
-      float p[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        p[v] = mp[0][v] * (att[0] * e.vm[0]) + mp[1][v] * (att[1] * e.vm[1]);
-      int vi;
-      const float tot = col_sum<V>(p, lane, vi);
-      if (V == 8 || !(lane & 4)) s.agg[i * F + col_of(vi, t)] += tot;
-    }
-    __syncthreads();
-  }
-
-  // P2: node MLP backward, one 16-node tile per warp; dh gets gh + its part
+  // node MLP backward, one 16-node tile per warp, on K2's f32 agg; dh gets
+  // gh + its part
   if (warp < T) {
     uint32_t a[2 * KS][4];
     {
       float hv[2][V], av[2][V];
       load_tile<F>(hv, hb, F, n0, N, lane);
-      load_tile<F>(av, s.agg, F, n0, N, lane);
+      load_tile<F>(av, agg + (size_t)b * N * F, F, n0, N, lane);
       to_frag<F>(hv, a);
       to_frag<F>(av, a + KS);
     }
@@ -274,14 +260,13 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
     store_tile<F, 2 * F>(gin, F, s.gagg, F, n0, N, lane);
   }
   __syncthreads();
-  for (int k = tid; k < N * F; k += kTcThreads) s.agg[k] = 0.f;  // now the src cotangent
-  __syncthreads();
 
-  // P3: edge backward; the sender tile's x cotangent in registers, its dst
-  // cotangent in the warp's own rows of gdst
+  // edge backward; the sender tile's x cotangent in registers, its dst
+  // cotangent in the warp's own rows of gdst, the src cotangent in gsrc
   float dxj[2][3];
 #pragma unroll
   for (int r = 0; r < 2; ++r) dxj[r][0] = dxj[r][1] = dxj[r][2] = 0.f;
+  const float* eab = ea + (size_t)b * N * N;
   float* deab = dea + (size_t)b * N * N;
   for (int step = 0; step < N; ++step) {
     if (warp < T) {
@@ -289,7 +274,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
       Geo e;
       edge_geo(e, s.x, eab, i, n0, N, lane);
       float ds1[2][V], mp[2][V], ds2[2][V], att[2];
-      edge_front<F, true>(s, e, i, c, lane, ds1, mp, ds2, att);
+      edge_front<F>(s, e, i, c, lane, ds1, mp, ds2, att);
       // cz = R(m_pre * att) W_c1 + b_c1, its sigmoid kept as silu'(cz)
       float cz[2][V];
       {
@@ -389,7 +374,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
       for (int v = 0; v < V; ++v) p[v] = gz[0][v] + gz[1][v];
       int vi;
       const float tot = col_sum<V>(p, lane, vi);
-      if (V == 8 || !(lane & 4)) s.agg[i * F + col_of(vi, t)] += tot;
+      if (V == 8 || !(lane & 4)) s.gsrc[i * F + col_of(vi, t)] += tot;
       float dr[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -435,7 +420,7 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
   // dh += [g_src | g_dst] [W_src^T ; W_dst^T]
   if (warp < T) {
     float gv[2][V], dv[2][V], out[2][V];
-    load_tile<F>(gv, s.agg, F, n0, N, lane);
+    load_tile<F>(gv, s.gsrc, F, n0, N, lane);
     load_tile<F>(dv, s.gdst, FS, n0, N, lane);
     load_tile<F>(out, dhb, F, n0, N, lane);
     uint32_t hi[2 * KS][4], lo[2 * KS][4];
@@ -448,14 +433,15 @@ egcl_bwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
 }
 
 template <int F>
-int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* gh,
-                  const float* gx, const float* wts, const __nv_bfloat16* wtc, float* dh,
-                  float* dx, float* dea, int B, const Cfg& c, cudaStream_t s) {
+int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* agg,
+                  const float* gh, const float* gx, const float* wts, const __nv_bfloat16* wtc,
+                  float* dh, float* dx, float* dea, int B, const Cfg& c, cudaStream_t s) {
   if (c.N < 1 || c.N > kTcMaxN) return (int)cudaErrorInvalidValue;
   const size_t bytes = tc_smem_floats<F>(c.N) * sizeof(float);
   const int err = prepare(egcl_bwd_tc_kernel<F>, bytes);
   if (err) return err;
-  egcl_bwd_tc_kernel<F><<<B, kTcThreads, bytes, s>>>(h, x, ea, gh, gx, wts, wtc, dh, dx, dea, c);
+  egcl_bwd_tc_kernel<F><<<B, kTcThreads, bytes, s>>>(h, x, ea, agg, gh, gx, wts, wtc, dh, dx,
+                                                      dea, c);
   return (int)cudaGetLastError();
 }
 
@@ -485,7 +471,8 @@ int launch_bwd_tc(const float* h, const float* x, const float* ea, const float* 
 //    the whole walk: after the prologue there is no __syncthreads, no sum in
 //    shared memory and no atomic, and the order is fixed (deterministic).
 //    The node MLP then takes agg_i from those registers as A fragments for
-//    the warp's own 16 nodes.
+//    the warp's own 16 nodes. Given agg_out (a launch that records a
+//    backward), the warp also stores agg_i there, in f32 as summed, for K3.
 //  - Each edge sigmoid is computed once, as sigm_tanh: one tanh.approx.f32
 //    (one SFU operation; exp and reciprocal, as sigm_fast, take two). Its
 //    error (~2^-12 absolute) is below the bf16 rounding of the products'
@@ -520,7 +507,7 @@ __global__ void __launch_bounds__(kTcThreads, kFwdMinBlocks)
 egcl_fwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
                    const float* __restrict__ ea, const float* __restrict__ wts,
                    const __nv_bfloat16* __restrict__ wtc, float* __restrict__ h_out,
-                   float* __restrict__ x_out, Cfg c) {
+                   float* __restrict__ x_out, float* __restrict__ agg_out, Cfg c) {
   static_assert(F == 16 || F == 32, "F must be 16 or 32");
   constexpr int V = F / 4, FS = F + 8, KS = F / 16;
   extern __shared__ float4 smem4[];
@@ -677,6 +664,7 @@ egcl_fwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
     swx1 += wij * xj1;
     swx2 += wij * xj2;
   }
+  if (agg_out) store_tile<F, F>(agg, 0, agg_out + (size_t)b * N * F, F, i0, N, lane);
 
   // x_out_i = x_i + x_i sum_j w_ij - sum_j w_ij x_j: lanes t = 0, 1 of a quad
   if (t < 2 && i_me < N) {
@@ -718,14 +706,15 @@ egcl_fwd_tc_kernel(const float* __restrict__ h, const float* __restrict__ x,
 
 template <int F>
 int launch_fwd_tc(const float* h, const float* x, const float* ea, const float* wts,
-                  const __nv_bfloat16* wtc, float* h_out, float* x_out, int B, const Cfg& c,
-                  cudaStream_t s) {
+                  const __nv_bfloat16* wtc, float* h_out, float* x_out, float* agg_out, int B,
+                  const Cfg& c, cudaStream_t s) {
   if (c.N < 1 || c.N > kTcMaxN) return (int)cudaErrorInvalidValue;
   const size_t bytes = fwd_tc_smem_bytes<F>(c.N);
   const int err = prepare(egcl_fwd_tc_kernel<F>, bytes);
   if (err) return err;
   const int warps = (c.N + 15) / 16;  // one per 16-receiver tile
-  egcl_fwd_tc_kernel<F><<<B, 32 * warps, bytes, s>>>(h, x, ea, wts, wtc, h_out, x_out, c);
+  egcl_fwd_tc_kernel<F><<<B, 32 * warps, bytes, s>>>(h, x, ea, wts, wtc, h_out, x_out, agg_out,
+                                                      c);
   return (int)cudaGetLastError();
 }
 
@@ -738,41 +727,44 @@ extern "C" int pita_egcl_tc_weights_len(int F) { return tcoff(F).total; }
 extern "C" int pita_egcl_tc_max_n() { return kTcMaxN; }
 
 // The VJP of pita_egcl_forward in bf16 compute, on tensor cores: the
-// arguments of pita_egcl_backward (csrc/egnn_layer.cu) plus wtc, the bf16
-// matrices of pack_weights_tc (16-byte aligned); wts is the f32 buffer of
-// pack_weights(w, bf16), of which the vectors are read.
+// arguments of pita_egcl_backward (csrc/egnn_layer.cu) plus agg, the (B, N,
+// F) f32 aggregate that pita_egcl_forward_tc stored for the same inputs, and
+// wtc, the bf16 matrices of pack_weights_tc (16-byte aligned); wts is the f32
+// buffer of pack_weights(w, bf16), of which the vectors are read.
 extern "C" int pita_egcl_backward_tc(const float* h, const float* x, const float* ea,
-                                     const float* gh, const float* gx, const float* wts,
-                                     const void* wtc, float* dh, float* dx, float* dea, int B,
-                                     int N, int F, int attention, int tanh, float coords_range,
-                                     void* stream) {
+                                     const float* agg, const float* gh, const float* gx,
+                                     const float* wts, const void* wtc, float* dh, float* dx,
+                                     float* dea, int B, int N, int F, int attention, int tanh,
+                                     float coords_range, void* stream) {
   if (B <= 0) return 0;
   const Cfg c{N, 1, attention, tanh, coords_range};
   const cudaStream_t s = (cudaStream_t)stream;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wtc);
   switch (F) {
-    case 16: return launch_bwd_tc<16>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
-    case 32: return launch_bwd_tc<32>(h, x, ea, gh, gx, wts, w, dh, dx, dea, B, c, s);
+    case 16: return launch_bwd_tc<16>(h, x, ea, agg, gh, gx, wts, w, dh, dx, dea, B, c, s);
+    case 32: return launch_bwd_tc<32>(h, x, ea, agg, gh, gx, wts, w, dh, dx, dea, B, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // pita_egcl_forward (csrc/egnn_layer.cu) in bf16 compute, on tensor cores:
-// h (B, N, F), x (B, N, 3), ea (B, N, N) -> h_out (B, N, F), x_out (B, N, 3),
-// all f32 and contiguous; wts is the f32 buffer of pack_weights(w, bf16), of
-// which the vectors are read, wtc the bf16 matrices of pack_weights_tc
-// (16-byte aligned). N <= pita_egcl_tc_max_n().
+// h (B, N, F), x (B, N, 3), ea (B, N, N) -> h_out (B, N, F), x_out (B, N, 3)
+// and, unless agg_out is null, the aggregate agg_i = sum_j m_ij (B, N, F)
+// that pita_egcl_backward_tc reads; all f32 and contiguous. wts is the f32
+// buffer of pack_weights(w, bf16), of which the vectors are read, wtc the
+// bf16 matrices of pack_weights_tc (16-byte aligned). N <=
+// pita_egcl_tc_max_n().
 extern "C" int pita_egcl_forward_tc(const float* h, const float* x, const float* ea,
                                     const float* wts, const void* wtc, float* h_out,
-                                    float* x_out, int B, int N, int F, int attention, int tanh,
-                                    float coords_range, void* stream) {
+                                    float* x_out, float* agg_out, int B, int N, int F,
+                                    int attention, int tanh, float coords_range, void* stream) {
   if (B <= 0) return 0;
   const Cfg c{N, 1, attention, tanh, coords_range};
   const cudaStream_t s = (cudaStream_t)stream;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(wtc);
   switch (F) {
-    case 16: return launch_fwd_tc<16>(h, x, ea, wts, w, h_out, x_out, B, c, s);
-    case 32: return launch_fwd_tc<32>(h, x, ea, wts, w, h_out, x_out, B, c, s);
+    case 16: return launch_fwd_tc<16>(h, x, ea, wts, w, h_out, x_out, agg_out, B, c, s);
+    case 32: return launch_fwd_tc<32>(h, x, ea, wts, w, h_out, x_out, agg_out, B, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,8 @@ the plain version. The compute dtype and the shape choose the kernel:
 
 - bf16: the tensor-core kernels of ``csrc/egnn_layer_tc.cu``
   (``egnn_layer_forward_tc``, ``egnn_layer_backward_tc``; N <= 64, else
-  ``ValueError``);
+  ``ValueError``). The VJP reads the aggregate agg_i = sum_j m_ij that the
+  forward summed (``with_agg``, ``agg``) instead of rebuilding it;
 - f32 K2: the 3xTF32 tensor-core kernel of ``csrc/egnn_layer_f32tc.cu``
   (``egnn_layer_forward_tf32``) where ``tf32_takes(N, F)``, F in (16, 32) and
   N <= 64 (the lj13 and lj55 presets), else the scalar ``egcl_fwd_kernel`` of
@@ -248,11 +249,11 @@ def _lib_tc():
     lib.pita_egcl_tc_max_n.argtypes = []
     lib.pita_egcl_tc_max_n.restype = ctypes.c_int
     lib.pita_egcl_backward_tc.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_backward_tc.restype = ctypes.c_int
     lib.pita_egcl_forward_tc.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.pita_egcl_forward_tc.restype = ctypes.c_int
     return lib
@@ -324,8 +325,10 @@ def _kernel_args(h, packed, cfg, backward):
             int(cfg.get("tanh", True)), float(cfg.get("coords_range", 5.0)))
 
 
-def egnn_layer_forward(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
-    """One EGCL layer forward (K2); returns (h_out, x_out).
+def egnn_layer_forward(h, x, edge_attr, w, packed=None, packed_tc=None, with_agg=False, **cfg):
+    """One EGCL layer forward (K2); returns (h_out, x_out), and with
+    ``with_agg`` (bf16 only) also the aggregate that
+    ``egnn_layer_backward`` reads.
 
     ``cfg``: attention, tanh, coords_range, cd. ``packed``: the output of
     ``pack_weights(w, cd)`` on the inputs' device, built here if not given.
@@ -339,7 +342,9 @@ def egnn_layer_forward(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
     cd = cfg.get("cd", torch.float32)
     if cd == torch.bfloat16:
         return egnn_layer_forward_tc(h, x, edge_attr, w, packed=packed, packed_tc=packed_tc,
-                                     **cfg)
+                                     with_agg=with_agg, **cfg)
+    if with_agg:
+        raise ValueError("only the bf16 EGCL forward hands its aggregate to the VJP")
     if cd == torch.float32 and tf32_takes(h.shape[-2], h.shape[-1]):
         return egnn_layer_forward_tf32(h, x, edge_attr, w, packed=packed, packed_tc=packed_tc,
                                        **cfg)
@@ -372,21 +377,25 @@ def _forward_scalar(h, x, edge_attr, w, packed=None, **cfg):
     return h_out, x_out
 
 
-def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
+def egnn_layer_backward(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, agg=None,
+                        **cfg):
     """VJP of one EGCL layer with respect to (h, x, edge_attr) (K3);
     returns (dh, dx, dea).
 
     On CUDA the compute dtype and the shape pick the kernel: bf16 runs the
     tensor-core kernel (``egnn_layer_backward_tc``, ``packed_tc`` from
-    ``pack_weights_tc``); f32 the 3xTF32 tensor-core kernel
-    (``egnn_layer_backward_tf32``, ``packed_tc`` from ``pack_weights_tf32``)
-    where ``tf32_takes(N, F)`` (F in (16, 32), N <= 64), else the scalar
-    kernel, whose launches this function counts.
+    ``pack_weights_tc``), which needs ``agg``, the aggregate of
+    ``egnn_layer_forward(..., with_agg=True)`` on the same inputs; f32 the
+    3xTF32 tensor-core kernel (``egnn_layer_backward_tf32``, ``packed_tc``
+    from ``pack_weights_tf32``) where ``tf32_takes(N, F)`` (F in (16, 32),
+    N <= 64), else the scalar kernel, whose launches this function counts.
     """
     cd = cfg.get("cd", torch.float32)
     if cd == torch.bfloat16:
         return egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=packed,
-                                      packed_tc=packed_tc, **cfg)
+                                      packed_tc=packed_tc, agg=agg, **cfg)
+    if agg is not None:
+        raise ValueError("only the bf16 EGCL VJP reads the forward's aggregate")
     if cd == torch.float32 and tf32_takes(h.shape[-2], h.shape[-1]):
         return egnn_layer_backward_tf32(h, x, edge_attr, gh, gx, w, packed=packed,
                                         packed_tc=packed_tc, **cfg)
@@ -517,44 +526,75 @@ def _check_bf16(cfg, what):
         raise ValueError(f"the tensor-core EGCL {what} computes in bf16 only")
 
 
-def egnn_layer_forward_tc(h, x, edge_attr, w, packed=None, packed_tc=None, **cfg):
+def _aggregate(acts):
+    """agg_i = sum_j m_ij of a ``layer_step`` pass, from its ``LayerActs``:
+    the same operations as ``layer_step``'s own sum."""
+    N = acts.att.shape[-1]
+    mask = 1.0 - torch.eye(N, dtype=torch.float32, device=acts.att.device)
+    return (acts.m_pre * (acts.att * mask)[..., None]).sum(-2)
+
+
+def egnn_layer_forward_tc(h, x, edge_attr, w, packed=None, packed_tc=None, with_agg=False,
+                          **cfg):
     """K2 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
-    (h_out, x_out). Takes F in (16, 32) and N up to 64; raises on anything
-    else, and on a compute dtype other than bf16."""
+    (h_out, x_out), and with ``with_agg`` also the aggregate agg_i = sum_j
+    m_ij (B, N, F), f32 as the kernel summed it, which
+    ``egnn_layer_backward_tc`` reads. Takes F in (16, 32) and N up to 64;
+    raises on anything else, and on a compute dtype other than bf16."""
     _check_inputs(h, x, edge_attr)
     _check_bf16(cfg, "forward")
     if h.device.type == "cpu":
         with torch.no_grad():
-            return layer_step(h, x, edge_attr, w, **cfg)
+            if not with_agg:
+                return layer_step(h, x, edge_attr, w, **cfg)
+            h_out, x_out, acts = layer_step(h, x, edge_attr, w, with_acts=True, **cfg)
+            return h_out, x_out, _aggregate(acts)
     lib, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "forward")
     h, x, edge_attr = (t.contiguous() for t in (h, x, edge_attr))
     h_out, x_out = torch.empty_like(h), torch.empty_like(x)
+    agg = torch.empty_like(h) if with_agg else None
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.pita_egcl_forward_tc(
             h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), packed.data_ptr(),
-            packed_tc.data_ptr(), h_out.data_ptr(), x_out.data_ptr(), *args, stream,
+            packed_tc.data_ptr(), h_out.data_ptr(), x_out.data_ptr(),
+            None if agg is None else agg.data_ptr(), *args, stream,
         )
     _build.check(err, "egnn_layer_forward_tc")
     egnn_layer_forward_tc.launches += 1
-    return h_out, x_out
+    return (h_out, x_out) if agg is None else (h_out, x_out, agg)
 
 
-def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, **cfg):
+def _check_agg(h, agg):
+    """Raises unless ``agg`` is an f32 (B, N, F) tensor on h's device."""
+    if agg is None:
+        raise ValueError("the tensor-core EGCL VJP needs agg, the aggregate of "
+                         "egnn_layer_forward_tc(..., with_agg=True) on the same inputs")
+    if tuple(agg.shape) != tuple(h.shape) or agg.dtype != torch.float32 or agg.device != h.device:
+        raise ValueError(f"agg must be f32 {tuple(h.shape)} on {h.device}; got {agg.dtype} "
+                         f"{tuple(agg.shape)} on {agg.device}")
+
+
+def egnn_layer_backward_tc(h, x, edge_attr, gh, gx, w, packed=None, packed_tc=None, agg=None,
+                           **cfg):
     """K3 in bf16 compute on tensor cores (``csrc/egnn_layer_tc.cu``); returns
-    (dh, dx, dea). Takes F in (16, 32) and N up to 64; raises on anything
-    else, and on a compute dtype other than bf16."""
+    (dh, dx, dea). ``agg`` is the aggregate that ``egnn_layer_forward_tc(...,
+    with_agg=True)`` returned for the same inputs; the kernel reads it and
+    does not rebuild it. Takes F in (16, 32) and N up to 64; raises on
+    anything else, on a compute dtype other than bf16, and on a missing or
+    ill-shaped ``agg``."""
     _check_inputs(h, x, edge_attr, gh, gx)
     _check_bf16(cfg, "VJP")
+    _check_agg(h, agg)
     if h.device.type == "cpu":
         return layer_vjp(h, x, edge_attr, gh, gx, w, **cfg)
     lib, packed, packed_tc, args = _tc_launch_args(h, w, packed, packed_tc, cfg, "VJP")
-    h, x, edge_attr, gh, gx = (t.contiguous() for t in (h, x, edge_attr, gh, gx))
+    h, x, edge_attr, agg, gh, gx = (t.contiguous() for t in (h, x, edge_attr, agg, gh, gx))
     dh, dx, dea = torch.empty_like(h), torch.empty_like(x), torch.empty_like(edge_attr)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.pita_egcl_backward_tc(
-            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), gh.data_ptr(),
+            h.data_ptr(), x.data_ptr(), edge_attr.data_ptr(), agg.data_ptr(), gh.data_ptr(),
             gx.data_ptr(), packed.data_ptr(), packed_tc.data_ptr(), dh.data_ptr(),
             dx.data_ptr(), dea.data_ptr(), *args, stream,
         )
@@ -574,30 +614,43 @@ egnn_layer_backward_tf32.launches = 0
 class EGCLFunction(torch.autograd.Function):
     """One EGCL layer, differentiable in (h, x, edge_attr) only.
 
-    The forward runs K2 and saves only its inputs; the backward runs K3,
-    which rebuilds the edge tensors on chip; in bf16 both run their
-    tensor-core kernels, in f32 their 3xTF32 ones where ``tf32_takes``.
-    Weights get no gradient (inference only): a weight that requires grad
-    raises.
+    The forward runs K2 and saves its inputs; the backward runs K3, which
+    rebuilds the edge tensors on chip; in bf16 both run their tensor-core
+    kernels, in f32 their 3xTF32 ones where ``tf32_takes``. A bf16 forward
+    that records a graph (grad mode on and an input that requires grad)
+    also saves K2's aggregate, which the bf16 K3 reads; one that records
+    none stores nothing more. Weights get no gradient (inference only): a
+    weight that requires grad raises.
     """
 
+    @classmethod
+    def apply(cls, h, x, edge_attr, layer):
+        # forward runs with grad mode off, so whether this call records a
+        # graph for a backward is decided here, as autograd decides it
+        records = torch.is_grad_enabled() and any(t.requires_grad for t in (h, x, edge_attr))
+        return super().apply(h, x, edge_attr, layer, records)
+
     @staticmethod
-    def forward(ctx, h, x, edge_attr, layer):
+    def forward(ctx, h, x, edge_attr, layer, records):
         if any(p.requires_grad for p in layer.parameters()):
             raise RuntimeError("EGCLFunction is inference-only: weights must not require grad")
         ctx.layer = layer
-        ctx.save_for_backward(h, x, edge_attr)
-        return egnn_layer_forward(h, x, edge_attr, layer.weights(), packed=layer.packed(h.device),
-                                  packed_tc=layer.packed(h.device, tc=True), **layer.cfg)
+        with_agg = records and layer.cfg["cd"] == torch.bfloat16
+        h_out, x_out, *agg = egnn_layer_forward(
+            h, x, edge_attr, layer.weights(), packed=layer.packed(h.device),
+            packed_tc=layer.packed(h.device, tc=True), with_agg=with_agg, **layer.cfg,
+        )
+        ctx.save_for_backward(h, x, edge_attr, *agg)
+        return h_out, x_out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gh, gx):
-        h, x, edge_attr = ctx.saved_tensors
+        h, x, edge_attr, *agg = ctx.saved_tensors
         layer = ctx.layer
         dh, dx, dea = egnn_layer_backward(
             h, x, edge_attr, gh.contiguous(), gx.contiguous(), layer.weights(),
             packed=layer.packed(h.device), packed_tc=layer.packed(h.device, tc=True),
-            **layer.cfg,
+            agg=agg[0] if agg else None, **layer.cfg,
         )
-        return dh, dx, dea, None
+        return dh, dx, dea, None, None

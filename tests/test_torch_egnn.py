@@ -251,28 +251,31 @@ def test_pack_weights_tc_layout(hidden):
 
 
 def test_egcl_backward_dispatches_by_compute_dtype():
-    """bf16 goes to the tensor-core wrapper, f32 to the scalar one; on the
-    CPU both run layer_vjp, and neither counts a launch. The tensor-core
-    wrapper refuses f32. The layer caches its bf16 buffer."""
+    """bf16 goes to the tensor-core wrapper, which takes the forward's
+    aggregate, f32 to the scalar one; on the CPU both run layer_vjp, and
+    neither counts a launch. The tensor-core wrapper refuses f32. The layer
+    caches its bf16 buffer."""
     mod, params = _jax_model(7, 16, 1, seed=8)
     layer = _port_model(mod, params, cd=torch.bfloat16).layers[0]
     h, x, ea = (torch.as_tensor(a) for a in _layer_inputs(3, 7, 16, 9))
     gh, gx = torch.randn(3, 7, 16), torch.randn(3, 7, 3)
     w = layer.weights()
+    agg = el.egnn_layer_forward(h, x, ea, w, with_agg=True, **dict(CFG, cd=torch.bfloat16))[2]
     before = (el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches)
     for cd in (torch.bfloat16, torch.float32):
         cfg = dict(CFG, cd=cd)
-        got = el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg)
+        got = el.egnn_layer_backward(h, x, ea, gh, gx, w,
+                                     agg=agg if cd == torch.bfloat16 else None, **cfg)
         ref = el.layer_vjp(h, x, ea, gh, gx, w, **cfg)
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
     cfg = dict(CFG, cd=torch.bfloat16)
-    got = el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, **cfg)
+    got = el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, agg=agg, **cfg)
     for a, b in zip(got, el.layer_vjp(h, x, ea, gh, gx, w, **cfg)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert (el.egnn_layer_backward.launches, el.egnn_layer_backward_tc.launches) == before
     with pytest.raises(ValueError, match="bf16 only"):
-        el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, **dict(CFG, cd=torch.float32))
+        el.egnn_layer_backward_tc(h, x, ea, gh, gx, w, agg=agg, **dict(CFG, cd=torch.float32))
     buf = layer.packed(torch.device("cpu"), tc=True)
     assert buf is layer.packed(torch.device("cpu"), tc=True)
     torch.testing.assert_close(buf, el.pack_weights_tc(w), rtol=0, atol=0)
@@ -307,6 +310,73 @@ def test_egcl_forward_dispatches_by_compute_dtype():
     assert counts() == before
     with pytest.raises(ValueError, match="bf16 only"):
         el.egnn_layer_forward_tc(h, x, ea, w, **dict(CFG, cd=torch.float32))
+
+
+def _bf16_layer_and_inputs(seed):
+    mod, params = _jax_model(7, 16, 1, seed=seed)
+    layer = _port_model(mod, params, cd=torch.bfloat16).layers[0]
+    h, x, ea = (torch.as_tensor(a) for a in _layer_inputs(3, 7, 16, seed + 1))
+    return layer, h, x, ea
+
+
+def test_egcl_forward_hands_over_the_aggregate():
+    """The bf16 forward's aggregate (the plain version on the CPU) is the
+    sum over senders j != i of layer_step's messages m_ij, and the node MLP
+    on it gives layer_step's h_out exactly; the f32 routes refuse to hand one
+    over or to take one."""
+    layer, h, x, ea = _bf16_layer_and_inputs(14)
+    w = layer.weights()
+    h_out, x_out, agg = el.egnn_layer_forward(h, x, ea, w, with_agg=True, **layer.cfg)
+    ref_h, ref_x, acts = el.layer_step(h, x, ea, w, with_acts=True, **layer.cfg)
+    torch.testing.assert_close(h_out, ref_h, rtol=0, atol=0)
+    torch.testing.assert_close(x_out, ref_x, rtol=0, atol=0)
+    N = h.shape[1]
+    m = acts.m_pre * acts.att[..., None]
+    want = torch.stack([sum(m[:, i, j] for j in range(N) if j != i) for i in range(N)], 1)
+    torch.testing.assert_close(agg, want, rtol=1e-6, atol=1e-6)
+    cd = torch.bfloat16
+    nz = el._mm(torch.cat([h, agg], -1), w["w_n1"], cd) + w["b_n1"]
+    torch.testing.assert_close(h + el._mm(el._silu(nz), w["w_n2"], cd) + w["b_n2"], ref_h,
+                               rtol=0, atol=0)
+    cfg = dict(layer.cfg, cd=torch.float32)
+    with pytest.raises(ValueError, match="only the bf16"):
+        el.egnn_layer_forward(h, x, ea, w, with_agg=True, **cfg)
+    with pytest.raises(ValueError, match="only the bf16"):
+        el.egnn_layer_backward(h, x, ea, h, x, w, agg=agg, **cfg)
+
+
+@pytest.mark.parametrize("bad", ["missing", "shape", "dtype", "device"])
+@pytest.mark.parametrize("wrapper", ["egnn_layer_backward", "egnn_layer_backward_tc"])
+def test_egcl_bf16_backward_refuses_a_bad_aggregate(bad, wrapper):
+    """The bf16 VJP raises on a missing aggregate, or on one of another
+    shape, dtype or device, rather than rebuild it; on the CPU as on CUDA."""
+    layer, h, x, ea = _bf16_layer_and_inputs(16)
+    agg = dict(missing=None, shape=torch.zeros(3, 7, 15), dtype=torch.zeros(3, 7, 16).double(),
+               device=torch.zeros(3, 7, 16, device="meta"))[bad]
+    with pytest.raises(ValueError, match="agg"):
+        getattr(el, wrapper)(h, x, ea, h, x, layer.weights(), agg=agg, **layer.cfg)
+
+
+def test_egcl_function_bf16_backward_is_layer_vjp():
+    """EGCLFunction in bf16: a forward that records a graph saves the
+    forward's aggregate and its backward equals layer_vjp (the plain version
+    on the CPU); a forward under no_grad, or on inputs that require no grad,
+    records nothing and saves no aggregate."""
+    layer, h, x, ea = _bf16_layer_and_inputs(18)
+    gh, gx = torch.randn(3, 7, 16), torch.randn(3, 7, 3)
+    hr, xr, ear = (a.clone().requires_grad_(True) for a in (h, x, ea))
+    ho, xo = layer(hr, xr, ear)
+    saved = ho.grad_fn.saved_tensors
+    assert len(saved) == 4
+    agg = el.egnn_layer_forward(h, x, ea, layer.weights(), with_agg=True, **layer.cfg)[2]
+    torch.testing.assert_close(saved[3], agg, rtol=0, atol=0)
+    got = torch.autograd.grad((ho, xo), (hr, xr, ear), (gh, gx))
+    ref = el.layer_vjp(h, x, ea, gh, gx, layer.weights(), **layer.cfg)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)  # the same plain computation
+    with torch.no_grad():
+        assert layer(hr, xr, ear)[0].grad_fn is None
+    assert layer(h, x, ea)[0].grad_fn is None
 
 
 def test_layer_forward_bf16_matches_jax():

@@ -194,8 +194,10 @@ def test_egcl_kernels_match_plain(cuda, F, N, cd, tol, B):
                           el.egnn_layer_forward_tf32.launches, el.egnn_layer_backward.launches,
                           el.egnn_layer_backward_tc.launches, el.egnn_layer_backward_tf32.launches)
         before = counts()
-        got = (*el.egnn_layer_forward(h, x, ea, w, **cfg),
-               *el.egnn_layer_backward(h, x, ea, gh, gx, w, **cfg))
+        # the bf16 K2 hands its aggregate to the bf16 K3
+        h_out, x_out, *agg = el.egnn_layer_forward(h, x, ea, w, with_agg=tc, **cfg)
+        got = (h_out, x_out, *el.egnn_layer_backward(h, x, ea, gh, gx, w,
+                                                     agg=agg[0] if tc else None, **cfg))
         assert counts() == (before[0], before[1] + tc, before[2] + (not tc),
                             before[3], before[4] + tc, before[5] + (not tc))
         with torch.no_grad():
@@ -406,9 +408,60 @@ def test_egcl_tc_forward_refuses_large_n(cuda):
 def test_egcl_tc_backward_refuses_large_n(cuda):
     w = _random_layer(16, cuda, seed=1)
     h, x = torch.zeros(2, 65, 16, device=cuda), torch.zeros(2, 65, 3, device=cuda)
+    before = el.egnn_layer_backward_tc.launches
     with pytest.raises(ValueError, match="N <= 64"):
         el.egnn_layer_backward_tc(h, x, torch.zeros(2, 65, 65, device=cuda), h, x, w,
-                                  cd=torch.bfloat16)
+                                  agg=torch.zeros_like(h), cd=torch.bfloat16)
+    assert el.egnn_layer_backward_tc.launches == before
+
+
+@pytest.mark.parametrize("bad", ["missing", "shape", "dtype", "device"])
+def test_egcl_tc_backward_refuses_a_bad_aggregate(cuda, bad):
+    """The tensor-core K3 reads K2's aggregate and never rebuilds it: a
+    missing one, or one of another shape, dtype or device, raises before
+    any launch."""
+    w = _random_layer(32, cuda, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 55, 3, generator=g, device=cuda)
+    h = torch.randn(4, 55, 32, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    agg = dict(missing=None, shape=torch.zeros(4, 54, 32, device=cuda),
+               dtype=torch.zeros(4, 55, 32, device=cuda, dtype=torch.bfloat16),
+               device=torch.zeros(4, 55, 32))[bad]
+    before = el.egnn_layer_backward_tc.launches
+    for f in (el.egnn_layer_backward, el.egnn_layer_backward_tc):
+        with pytest.raises(ValueError, match="agg"):
+            f(h, x, ea, h, x, w, agg=agg, cd=torch.bfloat16)
+    assert el.egnn_layer_backward_tc.launches == before
+
+
+@pytest.mark.parametrize("F,N,B", [
+    (32, 55, 64), (32, 13, 64), (32, 64, 64), (16, 55, 64),
+    (32, 55, 4096),  # the Hutchinson launch
+])
+def test_egcl_tc_forward_aggregate(cuda, F, N, B):
+    """The tensor-core K2 asked for its aggregate: h_out and x_out bitwise
+    those of K2 without it, and the aggregate (f32, as the kernel summed it)
+    within bf16's tolerance of layer_step's sum of the masked messages."""
+    w = _bench_layer(cuda) if F == 32 else _random_layer(F, cuda, seed=N)
+    g = torch.Generator(device=cuda).manual_seed(N + 5)
+    x = torch.randn(B, N, 3, generator=g, device=cuda) * 0.5
+    h = torch.randn(B, N, F, generator=g, device=cuda)
+    ea = ((x[:, :, None] - x[:, None]) ** 2).sum(-1)
+    for attention, tanh in ((True, True), (False, False)):
+        cfg = dict(attention=attention, tanh=tanh, coords_range=5.0, cd=torch.bfloat16)
+        before = el.egnn_layer_forward_tc.launches
+        plain = el.egnn_layer_forward_tc(h, x, ea, w, **cfg)
+        h_out, x_out, agg = el.egnn_layer_forward_tc(h, x, ea, w, with_agg=True, **cfg)
+        assert el.egnn_layer_forward_tc.launches == before + 2
+        ref = torch.cat([el._aggregate(el.layer_step(h[s:s + 512], x[s:s + 512],
+                                                     ea[s:s + 512], w, with_acts=True,
+                                                     **cfg)[2])
+                         for s in range(0, B, 512)])
+        torch.cuda.synchronize()
+        assert torch.equal(h_out, plain[0]) and torch.equal(x_out, plain[1])
+        assert agg.dtype == torch.float32 and agg.shape == h.shape
+        assert (agg - ref).abs().max() <= 3e-2 * ref.abs().max()
 
 
 def _g_op_inputs(device, N, F, T, B, integer=False):
