@@ -20,7 +20,8 @@ The trainer's backbone protocol: ``route`` and ``sampler_route`` are always
 draws flax's initial distributions (lecun-normal kernels, zero biases, unit
 LayerNorm scales, and zeros where flax zeroes). Weights are in
 ``nn.Linear``'s (out, in) layout; ``pita_torch.io.flax_params
-.dit_params_from_tree`` carries a flax tree across.
+.dit_params_from_tree`` carries a flax tree across. Each forward is a span
+``dit.forward`` (``pita_torch/utils/tracing.py``) with its row count.
 """
 
 import copy
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pita_torch.nets.egnn import lecun_normal_
+from pita_torch.utils.tracing import span
 
 
 def _dtype(d) -> torch.dtype:
@@ -168,6 +170,10 @@ class DiT3DBackbone(nn.Module):
         return copy.deepcopy(self)
 
     def forward(self, t, x, beta):
+        with span("dit.forward", rows=x.shape[0]):
+            return self._forward(t, x, beta)
+
+    def _forward(self, t, x, beta):
         B = x.shape[0]
         S, V = self.n_particles, self.n_spatial_dim
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(B)

@@ -23,6 +23,8 @@ also needs the ``"autograd"`` route.
 import torch
 from torch.autograd import forward_ad
 
+from pita_torch.utils.tracing import span
+
 
 def hutchinson_divergence(f, t: torch.Tensor, x: torch.Tensor,
                           probes: torch.Tensor) -> torch.Tensor:
@@ -46,7 +48,8 @@ def exact_divergence(f, t: torch.Tensor, x: torch.Tensor, chunk_size: int = None
     The generic exact trace: row d of each sample's Jacobian is the VJP with
     the one-hot cotangent e_d, and its d-th entry is the diagonal element.
     ``row_chunk`` rows go through one forward and one backward, the batch
-    repeated once per row; ``chunk_size`` bounds the chains in flight.
+    repeated once per row; ``chunk_size`` bounds the chains in flight. Each
+    such pass is a span ``divergence.exact_pass`` (rows R·B, chains B).
     """
     B, D = x.shape
     if chunk_size is not None and B > chunk_size:
@@ -58,12 +61,13 @@ def exact_divergence(f, t: torch.Tensor, x: torch.Tensor, chunk_size: int = None
     for start in range(0, D, row_chunk):
         rows = eye[start:start + row_chunk]  # (R, D)
         R = rows.shape[0]
-        cot = rows[:, None, :].expand(R, B, D).reshape(R * B, D)
-        with torch.enable_grad():
-            xr = x.detach().repeat(R, 1).requires_grad_(True)
-            y = f(t.repeat(R), xr)
-            (jt,) = torch.autograd.grad(y, xr, cot)
-        trace = trace + (jt * cot).sum(-1).reshape(R, B).sum(0)
+        with span("divergence.exact_pass", rows=R * B, chains=B):
+            cot = rows[:, None, :].expand(R, B, D).reshape(R * B, D)
+            with torch.enable_grad():
+                xr = x.detach().repeat(R, 1).requires_grad_(True)
+                y = f(t.repeat(R), xr)
+                (jt,) = torch.autograd.grad(y, xr, cot)
+            trace = trace + (jt * cot).sum(-1).reshape(R, B).sum(0)
     return trace
 
 

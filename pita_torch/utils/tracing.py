@@ -9,7 +9,11 @@ they sit: ``sampler.integrate`` (``integrate_sde``) over ``sampler.step``
 ``sampler.divergence``, ``sampler.weights``, ``sampler.update`` and
 ``sampler.resample``; ``train.step`` (``EnergyTempTrainer.train_step``) over
 ``train.batch``, ``train.losses``, ``train.backward``, ``train.optimizer``
-and ``train.ema``.
+and ``train.ema``. Below them, wherever they are called:
+``divergence.exact_pass`` (one forward and VJP pass of
+``ops/divergence.py:exact_divergence``; attributes ``rows``, the R one-hot
+rows times the B chains of the pass, and ``chains``, B) and ``dit.forward``
+(``nets/dit.py:DiT3DBackbone.forward``; attribute ``rows``, its batch).
 
 - **The gate.** A span records only while a ``torch.profiler`` session is
   active on this thread (``torch.autograd._profiler_enabled()``, the gate of
@@ -25,8 +29,10 @@ and ``train.ema``.
 Records stay in memory until ``clear()``. Their readers: the benchmark's
 per-layer metrics (``perfbench/spans.py`` and the ``step_ms.*``,
 ``step_p95_ms.*`` and ``idle_ms.*`` readers), which split the card's idle
-time by the spans open across it, and ``pita_torch/utils/debug.py:
-profile_trace``, which writes them into its Chrome trace.
+time by the spans open across it, and ``trace_passes_per_step.aldp`` and
+``dit_rows_per_step.aldp``, which count the last two names a step; and
+``pita_torch/utils/debug.py:profile_trace``, which writes them into its
+Chrome trace.
 """
 
 import time
