@@ -9,8 +9,12 @@ differentiable once, so forward mode and double backward do not pass
 through it: Hutchinson and the exact trace here are reverse mode.
 Hutchinson forms (Jᵀε)·ε from one backward pass, the same scalar as εᵀ(Jε)
 up to reassociation, with all probes in one batched forward and backward.
-The exact trace takes the D rows of the Jacobian by D VJPs, batched in
-chunks.
+The exact trace takes the D rows of the Jacobian by D VJPs: ``f`` runs once
+(pita_tpu's primal of ``jax.linearize``) and its graph takes the one-hot
+rows as batched cotangents, 16 a backward (``exact_divergence``). Where the
+backward has no batching rule (the kernel route's K3), each block of rows
+runs its own forward on the batch repeated once per row
+(``exact_divergence_replicated``).
 
 Hutch++ needs J·V itself (its sketch is the range of J), so it runs in
 forward mode (``torch.autograd.forward_ad``) and its ``f`` must be
@@ -47,14 +51,49 @@ def exact_divergence(f, t: torch.Tensor, x: torch.Tensor, chunk_size: int = None
 
     The generic exact trace: row d of each sample's Jacobian is the VJP with
     the one-hot cotangent e_d, and its d-th entry is the diagonal element.
-    ``row_chunk`` rows go through one forward and one backward, the batch
-    repeated once per row; ``chunk_size`` bounds the chains in flight. Each
-    such pass is a span ``divergence.exact_pass`` (rows R·B, chains B).
+    ``f`` runs once at the B chains of a chunk (``torch.func.vjp``, the
+    reverse-mode counterpart of pita_tpu's one ``jax.linearize``), and each
+    block of ``row_chunk`` one-hot rows goes back through its graph as one
+    backward with the rows as batched cotangents (``torch.func.vmap`` of the
+    pullback; the older vmap behind ``autograd.grad(is_grads_batched=True)``
+    loops over the rows in LayerNorm's, GELU's and softmax's backward).
+    ``chunk_size`` bounds the chains in flight. Each batched backward is a
+    span ``divergence.exact_pass`` (rows R·B, chains B); the forward lies
+    outside them. ``f`` must pass through torch.func's transforms, so a
+    ``torch.autograd.Function`` without their support (the EGNN's kernel
+    route, whose backward is K3) takes ``exact_divergence_replicated``.
     """
     B, D = x.shape
     if chunk_size is not None and B > chunk_size:
         return torch.cat([exact_divergence(f, t[s:s + chunk_size], x[s:s + chunk_size],
                                            None, row_chunk)
+                          for s in range(0, B, chunk_size)])
+    eye = torch.eye(D, dtype=x.dtype, device=x.device)
+    trace = torch.zeros(B, dtype=x.dtype, device=x.device)
+    with torch.no_grad():  # the transforms differentiate in x; no graph to the weights
+        _, pullback = torch.func.vjp(lambda xq: f(t, xq), x.detach())
+        for start in range(0, D, row_chunk):
+            rows = eye[start:start + row_chunk]  # (R, D)
+            R = rows.shape[0]
+            with span("divergence.exact_pass", rows=R * B, chains=B):
+                cot = rows[:, None, :].expand(R, B, D)
+                (jt,) = torch.func.vmap(pullback)(cot)
+                trace = trace + (jt * cot).sum(-1).sum(0)
+    return trace
+
+
+def exact_divergence_replicated(f, t: torch.Tensor, x: torch.Tensor, chunk_size: int = None,
+                                row_chunk: int = 16) -> torch.Tensor:
+    """``exact_divergence`` for an ``f`` whose backward cannot be batched
+    (the EGNN's kernel route, whose backward is K3): each block of
+    ``row_chunk`` one-hot rows goes through its own forward and backward,
+    the batch repeated once per row. Each such pass is a span
+    ``divergence.exact_pass`` (rows R·B, chains B).
+    """
+    B, D = x.shape
+    if chunk_size is not None and B > chunk_size:
+        return torch.cat([exact_divergence_replicated(f, t[s:s + chunk_size],
+                                                      x[s:s + chunk_size], None, row_chunk)
                           for s in range(0, B, chunk_size)])
     eye = torch.eye(D, dtype=x.dtype, device=x.device)
     trace = torch.zeros(B, dtype=x.dtype, device=x.device)

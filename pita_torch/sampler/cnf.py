@@ -7,7 +7,8 @@ learned score,
 
 integrated from t = 0 to 1 by fixed-step RK4 on x and the midpoint rule on
 the divergence integral, with the exact divergence (D VJPs,
-``pita_torch.ops.divergence.exact_divergence``) or the Hutchinson estimate.
+``pita_torch.ops.divergence.exact_divergence``; ``exact_divergence_replicated``
+for a score on the EGNN's kernel route) or the Hutchinson estimate.
 NLL(x0) = −log N(x1; 0, h(1)) + ∫ ½ g² div s dt. The Hutchinson probes come
 from a ``torch.Generator`` (pita_tpu's from its key).
 """
@@ -17,7 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pita_torch.ops.divergence import exact_divergence, hutchinson_divergence
+from pita_torch.ops.divergence import (exact_divergence, exact_divergence_replicated,
+                                       hutchinson_divergence)
 
 
 class CNFResult(NamedTuple):
@@ -37,6 +39,9 @@ def cnf_nll(x0: torch.Tensor, score_wrapper, noise_schedule, beta=1.0, num_steps
     ts = torch.linspace(0.0, 1.0, num_steps + 1, device=dev)
     dt = 1.0 / num_steps
     score_fn = lambda tt, xx: score_wrapper.score(noise_schedule.h(tt), xx, beta)
+    backbone = getattr(score_wrapper, "backbone", None)
+    trace = (exact_divergence_replicated if getattr(backbone, "route", "autograd") == "kernels"
+             else exact_divergence)
 
     def vector_field(t, x):
         tb = t.expand(B)
@@ -47,7 +52,7 @@ def cnf_nll(x0: torch.Tensor, score_wrapper, noise_schedule, beta=1.0, num_steps
     def div_term(t, x):
         tb = t.expand(B).contiguous()
         if exact:
-            div_s = exact_divergence(score_fn, tb, x, chunk_size=divergence_chunk_size)
+            div_s = trace(score_fn, tb, x, chunk_size=divergence_chunk_size)
         else:
             r = torch.randint(0, 2, (hutchinson_probes, B, D), generator=generator, device=dev)
             div_s = hutchinson_divergence(score_fn, tb, x, r.to(x.dtype) * 2 - 1)

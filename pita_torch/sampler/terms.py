@@ -16,7 +16,10 @@ CUDA). div(b_t) = div(s_θ)·g²/2 by ``divergence_mode``:
   materialized (default), through the G-operator kernel K5
   (``divergence_g_kernel``) or in forward mode through the layer tangent
   kernel K4 (``divergence_tangent_kernel``); any other backbone falls to
-- ``"exact_generic"``: D VJPs through the score function;
+- ``"exact_generic"``: D VJPs through the score function, as batched
+  cotangents through one forward (``exact_divergence``), or on the EGNN's
+  kernel route, whose backward K3 cannot be batched, a forward and a
+  backward per block of rows (``exact_divergence_replicated``);
 - ``"hutchpp"``: Hutch++ in forward mode on the score net's ``"autograd"``
   route (``ScoreWrapper.on_autograd_route``).
 
@@ -36,8 +39,9 @@ import torch
 
 from pita_torch.nets.egnn_fast import score_divergence_fast, supports_fast_divergence
 from pita_torch.nets.precondition import bcast
-from pita_torch.ops.divergence import (exact_divergence, exact_laplacian,
-                                       hutchinson_divergence, hutchpp_divergence)
+from pita_torch.ops.divergence import (exact_divergence, exact_divergence_replicated,
+                                       exact_laplacian, hutchinson_divergence,
+                                       hutchpp_divergence)
 from pita_torch.utils.tracing import span
 
 
@@ -130,7 +134,10 @@ def compute_sde_terms(score_wrapper, energy_wrapper, noise_schedule, annealing_s
                     )
                 else:
                     score_fn = lambda tq, xq: score_wrapper.score(noise_schedule.h(tq), xq, beta)
-                    div_st = exact_divergence(score_fn, t, x, chunk_size=divergence_chunk_size)
+                    trace = (exact_divergence_replicated
+                             if getattr(backbone, "route", "autograd") == "kernels"
+                             else exact_divergence)
+                    div_st = trace(score_fn, t, x, chunk_size=divergence_chunk_size)
                 div_bt = div_st * g2 / 2
             elif has_score and divergence_mode == "hutchpp":
                 if probes is None:

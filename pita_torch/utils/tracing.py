@@ -10,9 +10,11 @@ they sit: ``sampler.integrate`` (``integrate_sde``) over ``sampler.step``
 ``sampler.resample``; ``train.step`` (``EnergyTempTrainer.train_step``) over
 ``train.batch``, ``train.losses``, ``train.backward``, ``train.optimizer``
 and ``train.ema``. Below them, wherever they are called:
-``divergence.exact_pass`` (one forward and VJP pass of
-``ops/divergence.py:exact_divergence``; attributes ``rows``, the R one-hot
-rows times the B chains of the pass, and ``chains``, B) and ``dit.forward``
+``divergence.exact_pass`` (one batched backward of
+``ops/divergence.py:exact_divergence``, whose one forward a chain chunk lies
+outside the passes, or one forward and VJP pass of
+``exact_divergence_replicated``; attributes ``rows``, the R one-hot rows
+times the B chains of the pass, and ``chains``, B) and ``dit.forward``
 (``nets/dit.py:DiT3DBackbone.forward``; attribute ``rows``, its batch).
 
 - **The gate.** A span records only while a ``torch.profiler`` session is

@@ -9,9 +9,11 @@ the frozen product count of the aldp cell's ``mfu_pct.aldp``.
 On the CPU at a small size (2 blocks, hidden 32, 4 heads, 6 atoms, float32);
 one case on the card at the published widths."""
 
+import contextlib
 import json
 import math
 import types
+import warnings
 from pathlib import Path
 
 import pytest
@@ -26,7 +28,7 @@ from perfbench.frozen import dit_counts
 from perfbench.reference import dit as RD
 from perfbench.reference import egnn as R
 from pita_torch.nets import DiT3DBackbone, EnergyWrapper, ScoreWrapper
-from pita_torch.ops.divergence import exact_divergence
+from pita_torch.ops.divergence import exact_divergence, exact_divergence_replicated
 from pita_torch.sampler import IntegratorConfig, integrate_sde
 from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
 from pita_torch.utils import tracing
@@ -118,8 +120,10 @@ def test_exact_divergence_on_the_dit_matches_the_reference_trace():
 
 def test_the_exact_trace_and_the_dit_record_their_spans():
     """Two passes of 16 and 2 one-hot rows at D = 18, each a
-    `divergence.exact_pass` over a `dit.forward` of its rows; none without
-    a profiler."""
+    `divergence.exact_pass` (one batched backward), after one `dit.forward`
+    of the B chains, which lies outside the passes and inside the caller's
+    span; with the chains in chunks, one forward and two passes a chunk;
+    none without a profiler."""
     w = RD.draw_weights(13, **SMALL)
     x, t, beta = _inputs(B=3, seed=2)
     score = ScoreWrapper(_port(w))
@@ -127,15 +131,20 @@ def test_the_exact_trace_and_the_dit_record_their_spans():
     tracing.clear()
     exact_divergence(f, t, x)
     assert tracing.spans() == []
-    with profile(activities=[ProfilerActivity.CPU]):
-        exact_divergence(f, t, x)
-    r = tracing.spans()
-    tracing.clear()
-    passes = [s for s in r if s.name == "divergence.exact_pass"]
-    assert [s.attrs for s in passes] == [{"rows": 48, "chains": 3}, {"rows": 6, "chains": 3}]
-    dits = [s for s in r if s.name == "dit.forward"]
-    assert [s.attrs for s in dits] == [{"rows": 48}, {"rows": 6}]
-    assert [r[s.parent].name for s in dits] == ["divergence.exact_pass"] * 2
+    for chunk, chains in ((None, [3]), (2, [2, 1])):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with tracing.span("sampler.divergence"):
+                exact_divergence(f, t, x, chunk_size=chunk)
+        r = tracing.spans()
+        tracing.clear()
+        passes = [s for s in r if s.name == "divergence.exact_pass"]
+        assert [s.attrs for s in passes] == [{"rows": n * b, "chains": b}
+                                             for b in chains for n in (16, 2)]
+        dits = [s for s in r if s.name == "dit.forward"]
+        assert [s.attrs for s in dits] == [{"rows": b} for b in chains]
+        assert [r[s.parent].name for s in dits + passes] == ["sampler.divergence"] * 3 * len(chains)
+        for k, d in enumerate(dits):  # the chunk's forward ends before its passes start
+            assert d.end_ns <= passes[2 * k].start_ns
 
 
 def _integration(seed=5, B=16, n_steps=4, end=3):
@@ -210,3 +219,49 @@ def test_port_dit_on_the_card_matches_the_reference_at_the_published_widths():
         got = exact_divergence(lambda tq, xq: score.score(sched.h(tq), xq, beta), t, x)
         want = RD.exact_div(ref, sched, x, t, beta, block=16)
     _close(got, want, 2e-2)
+
+
+@contextlib.contextmanager
+def no_batching_fallback():
+    """A vmap that falls back to its loop over the batch, for want of an op's
+    batching rule, raises: PyTorch warns of it ("... not yet implemented the
+    batching rule for ...") only with its fallback warnings on, which are off
+    by default, in torch.func's vmap and in the older one behind
+    ``autograd.grad(is_grads_batched=True)``."""
+    legacy = torch._C._debug_only_are_vmap_fallback_warnings_enabled()
+    torch._C._debug_only_display_vmap_fallback_warnings(True)
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*batching rule.*")
+            yield
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+        torch._C._debug_only_display_vmap_fallback_warnings(legacy)
+
+
+@pytest.mark.cuda
+def test_both_exact_trace_forms_agree_on_the_card_at_the_cells_size():
+    """The aldp cell's DiT3D (published widths, bf16 block products) at its
+    1,024 chains: the one-forward trace against the replicated one, with no
+    batching-rule fallback on the card; each form's peak memory printed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    w = RD.draw_weights(22)
+    x, t, beta = _inputs(B=1024, seed=4, n=22, device="cuda")
+    sched = R.Elucidating(**SIGMA)
+    score = ScoreWrapper(_port(w, torch.bfloat16, n=22, heads=8, device="cuda"))
+    f = lambda tq, xq: score.score(sched.h(tq), xq, beta)
+    got = {}
+    for form in (exact_divergence, exact_divergence_replicated):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with no_batching_fallback():
+            got[form.__name__] = form(f, t, x)
+        torch.cuda.synchronize()
+        print(f"{form.__name__}: peak {torch.cuda.max_memory_allocated() - held} bytes "
+              f"above the {held} held")
+    new, rep = got["exact_divergence"], got["exact_divergence_replicated"]
+    print(f"largest gap {float((new - rep).abs().max())} of {float(rep.abs().max())}")
+    _close(new, rep, 2e-3)

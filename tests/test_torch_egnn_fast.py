@@ -1,7 +1,8 @@
 """pita_torch.nets.egnn_fast against pita_tpu.nets.egnn_fast (CPU, f32):
 the forward with its activations, every tangent operator, the Jacobian trace
-by each route and the score divergence. The port's generic exact_divergence
-(D VJPs) is the independent oracle."""
+by each route and the score divergence. The port's generic exact trace
+(D VJPs; on the kernel route, whose EGCL backward has no batching rule, its
+replicated form ``exact_divergence_replicated``) is the independent oracle."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ from pita_tpu.schedules import ElucidatingNoiseSchedule as JaxSched
 from pita_torch.io.flax_params import load_egnn_params
 from pita_torch.nets import EGNNBackbone, ScoreWrapper
 from pita_torch.nets import egnn_fast as tf
-from pita_torch.ops.divergence import exact_divergence
+from pita_torch.ops.divergence import exact_divergence_replicated
 from pita_torch.schedules import ElucidatingNoiseSchedule
 
 ASSET = "pita_tpu/assets/bench_lj55.npz"
@@ -95,7 +96,7 @@ def test_jacobian_trace_matches_jax_and_oracle(attention, tanh):
     _close(out_t, out_j)
     np.testing.assert_allclose(tr_t.numpy(), np.asarray(tr_j), rtol=1e-4, atol=1e-4)
     # independent oracle: D reverse-mode rows through the backbone module
-    tr_o = exact_divergence(lambda tq, xq: bb(tq, xq, beta), tt, xt, row_chunk=4)
+    tr_o = exact_divergence_replicated(lambda tq, xq: bb(tq, xq, beta), tt, xt, row_chunk=4)
     np.testing.assert_allclose(tr_t.numpy(), tr_o.numpy(), rtol=1e-4, atol=1e-4)
 
 
@@ -142,7 +143,8 @@ def test_score_divergence_fast_matches_jax(precondition_beta):
     np.testing.assert_allclose(part.numpy(), got.numpy(), rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
     # the generic exact divergence of the score function
-    gen = exact_divergence(lambda tq, xq: sw.score(ts.h(tq), xq, beta), tt, xt, chunk_size=3)
+    gen = exact_divergence_replicated(lambda tq, xq: sw.score(ts.h(tq), xq, beta), tt, xt,
+                                      chunk_size=3)
     np.testing.assert_allclose(gen.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
 
 

@@ -768,10 +768,12 @@ def test_trace_bf16_routes_agree_on_the_card(cuda):
 
 
 def test_exact_generic_divergence_on_the_card(cuda):
-    """The generic exact divergence (D reverse-mode rows, each through the
-    EGCL VJP kernel K3) against the edge-operator trace, f32."""
+    """The generic exact divergence on the kernel route (D reverse-mode rows,
+    a forward and a backward per block of rows, each backward through the
+    EGCL VJP kernel K3, which has no batching rule: the replicated form the
+    sampler takes there) against the edge-operator trace, f32."""
     from pita_torch.nets.egnn_fast import egnn_jacobian_trace
-    from pita_torch.ops.divergence import exact_divergence
+    from pita_torch.ops.divergence import exact_divergence_replicated
 
     bb = EGNNBackbone(13, hidden_nf=16, n_layers=2)
     g = torch.Generator().manual_seed(8)
@@ -781,7 +783,7 @@ def test_exact_generic_divergence_on_the_card(cuda):
     t = torch.rand(4, generator=g).to(cuda)
     x = (torch.randn(4, 39, generator=g) * 0.5).to(cuda)
     before = el.egnn_layer_backward_tf32.launches
-    tr_rev = exact_divergence(lambda tq, xq: bb(tq, xq, 1.0), t, x, row_chunk=16)
+    tr_rev = exact_divergence_replicated(lambda tq, xq: bb(tq, xq, 1.0), t, x, row_chunk=16)
     # the f32 K3 in 3xTF32 (N = 13): 2 layers x 3 chunks of rows
     assert el.egnn_layer_backward_tf32.launches == before + 2 * 3
     _, tr_op = egnn_jacobian_trace(bb, t, x, 1.0)

@@ -17,7 +17,7 @@ from pita_tpu.ops.pallas.egnn_fwd import _W_FIELDS, _layer_step, egnn_jacobian_t
 from pita_torch.io.flax_params import load_egnn_params
 from pita_torch.nets import EGNNBackbone
 from pita_torch.nets.egnn_fast import egnn_jacobian_trace
-from pita_torch.ops.divergence import exact_divergence
+from pita_torch.ops.divergence import exact_divergence_replicated
 from pita_torch.ops.egnn_layer import layer_step
 from pita_torch.ops.egnn_tangent import (egnn_jacobian_trace_fused, egnn_layer_tangent,
                                          egnn_layer_tangent_tc, layer_tangent)
@@ -152,7 +152,7 @@ def test_three_trace_routes_agree_on_large_weights():
     x = torch.randn(3, 15, generator=gen)
     _, tr_op = egnn_jacobian_trace(bb, t, x, 1.0)
     tr_fwd = egnn_jacobian_trace_fused(bb, t, x, 1.0)
-    tr_rev = exact_divergence(lambda tq, xq: bb(tq, xq, 1.0), t, x)
+    tr_rev = exact_divergence_replicated(lambda tq, xq: bb(tq, xq, 1.0), t, x)
     np.testing.assert_allclose(tr_op.numpy(), tr_rev.numpy(), rtol=2e-5)
     np.testing.assert_allclose(tr_fwd.numpy(), tr_rev.numpy(), rtol=2e-5)
 
