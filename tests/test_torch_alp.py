@@ -14,6 +14,7 @@ import torch
 
 from pita_tpu.targets import alp as jalp
 from pita_torch.targets import alp as talp
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PEPTIDES = ("aldp", "al3", "al4")

@@ -24,6 +24,7 @@ from pita_torch.io import logging as tlogging
 from pita_torch.schedules import SigmoidAnnealingSchedule
 from pita_torch.targets import LJ13
 from tests.test_torch_trainer import NARROW, _lj13_data_dir
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 YAML_OVERLAY = {
     "noise_schedule": {"kind": "geometric", "sigma_min": 0.01, "sigma_max": 10.0},

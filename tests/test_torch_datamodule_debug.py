@@ -22,6 +22,7 @@ from pita_torch.utils.tracing import span
 from pita_tpu.io import datamodule as jdm
 from pita_tpu.targets import GMM40 as JaxGMM40
 from pita_tpu.targets import LJ13 as JaxLJ13
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def test_download_existing_file_verifies_checksum(tmp_path):

@@ -30,6 +30,7 @@ from pita_torch.train.dem_estimator import estimate_grad_Rt, wrap_for_richardson
 from pita_torch.train.trainer import DEMStepDraws
 from tests.test_torch_train import _jax_net, _lattice13, _port_net, t
 from tests.test_torch_trainer import _lj13_data_dir
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 LR = 1e-3
 HT = np.array([1e-3, 3e-3, 1e-2, 2e-2, 5e-3, 4e-2], np.float32)

@@ -18,22 +18,12 @@ from pita_torch.nets import DiT3DBackbone, EnergyWrapper, ScoreWrapper
 from pita_torch.ops.divergence import exact_divergence, hutchinson_divergence
 from pita_torch.sampler.terms import compute_sde_terms
 from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N = 22  # aldp
 NARROW = dict(hidden_size=32, cond_dim=32, n_heads=4, n_blocks=2)
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(B=8, seed=0):

@@ -32,6 +32,7 @@ from pita_torch.ops.divergence import exact_divergence, exact_divergence_replica
 from pita_torch.sampler import IntegratorConfig, integrate_sde
 from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
 from pita_torch.utils import tracing
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 6
@@ -40,17 +41,6 @@ HEADS = 4
 SIGMA = dict(sigma_min=0.01, sigma_max=80.0, rho=7.0)
 GAMMA = 1200.0 / 755.95
 LIMITS = {"x_gap": 0.05, "a_gap": 0.05}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(weights, dtype=torch.float32, n=N, heads=HEADS, device="cpu"):

@@ -35,17 +35,7 @@ from pita_torch.sampler.terms import compute_sde_terms
 from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
 from pita_torch.targets import LJ13
 from tests.test_torch_dit_reference import no_batching_fallback
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 SCHED = dict(sigma_min=0.05, sigma_max=10.0, rho=7.0)

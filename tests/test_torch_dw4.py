@@ -27,17 +27,7 @@ from pita_torch.nets.egnn_fast import score_divergence_fast
 from pita_torch.ops.divergence import exact_divergence
 from pita_torch.targets import DoubleWell4
 from pita_torch.train.augment import random_rotations, rotate_augment
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _close(got, ref, tol):

@@ -12,6 +12,7 @@ import torch
 from pita_tpu.ops.pallas.egnn_fwd import _W_FIELDS, _layer_bwd_call
 from pita_torch.nets.egnn import EGCL
 from pita_torch.ops import egnn_layer as el
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 N, B = 13, 2
 NP = 16  # pita_tpu pads N to the sublane tile

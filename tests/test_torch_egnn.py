@@ -21,6 +21,7 @@ from pita_torch.nets import EGNNBackbone, EnergyWrapper, ScoreWrapper
 from pita_torch.ops import egnn_layer as el
 from pita_torch.ops.divergence import hutchinson_divergence
 from pita_torch.schedules import ElucidatingNoiseSchedule
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ASSET = "pita_tpu/assets/bench_lj55.npz"
 CFG = dict(attention=True, tanh=True, coords_range=5.0)

@@ -20,6 +20,7 @@ from pita_torch.nets import EGNNBackbone, ScoreWrapper
 from pita_torch.nets import egnn_fast as tf
 from pita_torch.ops.divergence import exact_divergence_replicated
 from pita_torch.schedules import ElucidatingNoiseSchedule
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ASSET = "pita_tpu/assets/bench_lj55.npz"
 

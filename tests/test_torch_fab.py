@@ -33,6 +33,7 @@ from pita_tpu.fab import metropolis_transition as jax_metropolis
 from pita_tpu.fab import train_fab_with_prioritised_buffer as jax_train_prioritised
 from pita_tpu.fab.ais import beta_spacing as jax_beta_spacing
 from pita_tpu.train import buffer as jbuf
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def t(a):

@@ -9,6 +9,7 @@ import torch
 
 from pita_tpu.ops.pallas.g_op import g_operator_contract as jax_g_op
 from pita_torch.ops.g_op import _contract_scalar, g_operator_contract, g_operator_contract_plain
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _inputs(N, F, T, B, seed, integer=False):

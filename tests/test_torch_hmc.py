@@ -15,6 +15,7 @@ from pita_tpu.targets import LJ13 as JaxLJ13
 from pita_torch.baselines import mcmc
 from pita_torch.baselines.mcmc import _hmc_step, hmc_chain, jittered_lattice, split_rhat
 from pita_torch.targets import LJ13
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def t(a):

@@ -13,6 +13,7 @@ from pita_torch.io.flax_params import (
     load_egnn_params,
     msgpack_restore,
 )
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ASSET = "pita_tpu/assets/bench_lj55.npz"
 

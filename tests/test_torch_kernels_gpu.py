@@ -20,6 +20,7 @@ from pita_torch.ops import egnn_tangent as et
 from pita_torch.ops import g_op
 from pita_torch.ops import lj as ljop
 from pita_torch.targets import LennardJones
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

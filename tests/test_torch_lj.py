@@ -10,6 +10,7 @@ from pita_tpu.ops.pallas.lj import lj_log_prob_and_force as pallas_lj
 from pita_tpu.targets import LennardJones as JaxLJ
 from pita_torch.ops import lj as ljop
 from pita_torch.targets import LennardJones
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _configs(n, B, scale, seed=0):

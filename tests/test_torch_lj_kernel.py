@@ -10,6 +10,7 @@ import torch
 
 from pita_torch.ops import lj as ljop
 from pita_torch.targets import LennardJones
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n,lanes,threads", [

@@ -21,6 +21,7 @@ from pita_torch.baselines.mcmc import (
 )
 from pita_torch.targets import LJ13
 from pita_torch.train.optim import adam_init
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def t(a):

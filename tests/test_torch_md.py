@@ -11,6 +11,7 @@ from pita_tpu.targets.alp import ALPEnergy as JaxALP
 from pita_torch import generate_md_cli
 from pita_torch.baselines import md as tmd
 from pita_torch.targets.alp import ALPEnergy
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _jax_draws(key, shape, cfg):

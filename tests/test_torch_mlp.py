@@ -23,17 +23,7 @@ from pita_torch.nets import MLPBackbone
 from pita_torch.nets.mlp import sinusoidal_embedding
 from pita_torch.train.losses import LossDraws
 from pita_torch.train.trainer import StepDraws
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 LR = 1e-3

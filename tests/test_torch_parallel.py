@@ -41,6 +41,7 @@ from tests.test_sampler import AnalyticEnergy as JaxAnalyticEnergy
 from tests.test_sampler import AnalyticScore as JaxAnalyticScore
 from tests.test_sampler import GaussianTarget as JaxGaussian
 from tests.test_torch_sampler import JaxDraws
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SPAWN_TIMEOUT_S = 150
 B_GAUSS, B_DP, DIM_BUF = 256, 64, 6

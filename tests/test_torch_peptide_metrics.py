@@ -24,6 +24,7 @@ from pita_torch.metrics import mmd as tmmd
 from pita_torch.metrics import tica as ttica
 from pita_torch.targets.alp import ALPEnergy
 from pita_torch.utils import chirality as tchir
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PEPTIDES = ("aldp", "al3", "al4")

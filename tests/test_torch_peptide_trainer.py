@@ -26,6 +26,7 @@ from pita_torch.nets import DiT3DBackbone
 from pita_torch.targets import ALPEnergy
 from pita_torch.train.losses import LossDraws
 from pita_torch.train.trainer import StepDraws
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PRESETS = ("aldp", "al3", "al4", "alp_diffusion_baseline")
@@ -33,17 +34,6 @@ LR = 1e-3
 NARROW = {"trainer.temperatures": (1200.0, 755.95), "trainer.num_epochs_per_temp": (2,),
           "trainer.buffer_capacity": 512, "net.hidden_size": 32, "net.cond_dim": 32,
           "net.n_heads": 4, "net.n_blocks": 2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

@@ -12,6 +12,7 @@ import torch
 from pita_tpu.ops.resampling import birth_death_resample as jax_birth_death
 from pita_tpu.ops.resampling import qmc_resample as jax_qmc
 from pita_torch.ops.resampling import birth_death_resample, qmc_resample
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 # each reference jitted with its draws: one compile a shape, where op-by-op

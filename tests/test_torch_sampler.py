@@ -32,6 +32,7 @@ from pita_torch.ops.resampling import count_unique, systematic_resample
 from pita_torch.sampler import IntegratorConfig, integrate_sde
 from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSchedule
 from pita_torch.targets import LJ13
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ from pita_tpu import schedules as js
 from pita_tpu.utils.mean_free import remove_mean as jax_remove_mean
 from pita_torch import schedules as ts
 from pita_torch.utils import remove_mean
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 T = np.linspace(0.0, 1.0, 101, dtype=np.float32)
 # float32 powers (t^13, t^14) evaluated by two libraries: a few ulp apart

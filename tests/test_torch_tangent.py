@@ -21,6 +21,7 @@ from pita_torch.ops.divergence import exact_divergence_replicated
 from pita_torch.ops.egnn_layer import layer_step
 from pita_torch.ops.egnn_tangent import (egnn_jacobian_trace_fused, egnn_layer_tangent,
                                          egnn_layer_tangent_tc, layer_tangent)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _layer(seed, hidden, n=6):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from pita_torch.ops import egnn_layer as el
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 def _weights(F, seed):
     rng = np.random.default_rng(seed)

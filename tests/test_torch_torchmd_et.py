@@ -20,17 +20,7 @@ from pita_torch.nets import EGNNBackbone, ScoreWrapper, TorchMDETBackbone
 from pita_torch.nets.atom_features import peptide_atom_types
 from pita_torch.nets.egnn_fast import score_divergence_fast
 from pita_torch.targets.alp import build_peptide_topology
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for this module: the suite runs in several worker
-    processes on shared cores, where each torch process's full thread pool
-    makes small ops wait on one another."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 N = 8

@@ -22,6 +22,7 @@ from pita_torch.schedules import ConstantAnnealingSchedule, ElucidatingNoiseSche
 from pita_torch.targets import LJ13
 from pita_torch.utils import tracing
 from pita_torch.utils.tracing import span
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CPU = [ProfilerActivity.CPU]
 

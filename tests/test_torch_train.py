@@ -40,6 +40,7 @@ from pita_torch.train.augment import com_augment, rotate_augment
 from pita_torch.train.dem_estimator import clip_scores
 from pita_torch.train.losses import LossConfig, LossDraws, compute_losses, stratified_losses
 from pita_torch.train.optim import adam_init, adam_update, clip_by_global_norm, make_lr_schedule
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SCHED = dict(sigma_min=0.05, sigma_max=80.0, rho=7.0)
 

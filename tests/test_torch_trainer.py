@@ -27,6 +27,7 @@ from pita_torch.ops.egnn_layer import pack_weights
 from pita_torch.sampler import IntegratorConfig
 from pita_torch.train.losses import LossDraws
 from pita_torch.train.trainer import StepDraws, TrainerConfig, fill_with_quality_floor
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 LR = 1e-3
 NARROW = {"trainer.temperatures": (4.0, 3.0), "trainer.num_epochs_per_temp": (2,),
